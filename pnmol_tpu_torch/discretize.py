@@ -1,0 +1,134 @@
+"""Probabilistic finite differences (counterpart of the FD path of
+:mod:`pnmol_tpu.discretize`).
+
+Kernel (RKHS) finite differences give a differentiation matrix ``L`` and a
+diagonal discretization-error factor ``E_sqrtm``. The per-stencil systems
+are solved in one ``torch.func.vmap`` batch; for stationary kernels only the
+distinct neighbour-offset patterns are solved (O(1) on a uniform grid).
+"""
+
+from functools import partial
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from pnmol_tpu_torch import kernels
+
+
+def _matern52_point_patches(kernel):
+    """MacLaurin values of the Matern52 derivatives at x == y, where
+    autodiff through the Laplacian gives NaN."""
+    s2 = kernel.output_scale**2
+    r2 = kernel.input_scale**2
+    lk_at_zero = s2 * r2 * 2.5 / (1.0 - 2.5)
+    llk_at_zero = s2 * r2**2 * 3.0 * 2.5**2 / (2.0 - 3.0 * 2.5 + 2.5**2)
+    return lk_at_zero, llk_at_zero
+
+
+def _differentiate_kernel(diffop, kernel):
+    """Push a differential operator through a kernel: L_k and (L x L)_k."""
+    L_kx = kernels.Lambda(diffop(kernel.pairwise, argnums=0))
+    LL_kx = kernels.Lambda(diffop(L_kx.pairwise, argnums=1))
+    return L_kx, LL_kx
+
+
+def fd_coefficients(x, neighbors, k, L_k, LL_k, nugget_gram_matrix=0.0):
+    """Kernel-FD weights and uncertainty for one stencil: solve
+    ``K(X, X) w = (L k)(x, X)``; uncertainty ``(L L k)(x, x) - w . (L k)(x, X)``."""
+    X, s = neighbors, neighbors.shape[0]
+    gram = k(X, X.T) + nugget_gram_matrix * torch.eye(s, dtype=X.dtype, device=X.device)
+    lk_at_x = L_k(x[None, :], X.T).reshape(-1)
+    llk_at_x = LL_k(x, x).reshape(())
+
+    if isinstance(k, kernels.Matern52):
+        lk_zero, llk_zero = _matern52_point_patches(k)
+        lk_at_x = torch.nan_to_num(lk_at_x, nan=lk_zero)
+        llk_at_x = torch.nan_to_num(llk_at_x, nan=llk_zero)
+
+    chol = torch.linalg.cholesky(gram)
+    weights = torch.cholesky_solve(lk_at_x[:, None], chol).reshape(-1)
+    uncertainty = llk_at_x - weights @ lk_at_x
+    return weights, uncertainty
+
+
+def _dedupe_offsets(points_host, point_indices, neighbor_indices):
+    """Host-side dedupe of stencil offset patterns: (representative offsets
+    (U, s, dim) float64, inverse (n,)), from the f64 host geometry."""
+    pt_idx = np.asarray(point_indices.cpu())
+    nb_idx = np.asarray(neighbor_indices.cpu())
+    off = points_host[nb_idx] - points_host[pt_idx][:, None, :]
+    scale = np.abs(off).max()
+    if scale == 0.0:
+        scale = 1.0
+    quant = np.round(off / scale * 1e9).astype(np.int64).reshape(off.shape[0], -1)
+    _, first, inverse = np.unique(quant, axis=0, return_index=True, return_inverse=True)
+    return off[first], inverse.reshape(-1)
+
+
+def _stencil_coefficients(coeff_batch, mesh_spatial, points, point_indices,
+                          neighbors, neighbor_indices, dedupe):
+    """Per-point FD weights/uncertainties, deduped for stationary kernels."""
+    if not dedupe or points.shape[0] == 0:
+        return coeff_batch(points, neighbors)
+    rep_offsets, inverse = _dedupe_offsets(
+        mesh_spatial._points_host, point_indices, neighbor_indices
+    )
+    dtype, device = points.dtype, points.device
+    zeros = torch.zeros((rep_offsets.shape[0], rep_offsets.shape[2]), dtype=dtype, device=device)
+    w_u, u_u = coeff_batch(zeros, torch.tensor(rep_offsets, dtype=dtype, device=device))
+    inv = torch.as_tensor(inverse, device=device)
+    return w_u[inv], u_u[inv]
+
+
+def fd_probabilistic(diffop, mesh_spatial, kernel=None, stencil_size_interior=3,
+                     stencil_size_boundary=3, nugget_gram_matrix=0.0,
+                     stencil_dedupe="auto"):
+    """Discretize ``diffop`` with probabilistic finite differences.
+
+    Returns ``L`` (N, N), one stencil row per mesh point, and the diagonal
+    error factor ``E_sqrtm`` (N, N), on the mesh's device.
+    """
+    if kernel is None:
+        kernel = kernels.SquareExponential(input_scale=1.0, output_scale=1.0)
+
+    L_kx, LL_kx = _differentiate_kernel(diffop, kernel)
+    coeff_batch = vmap(
+        partial(
+            fd_coefficients, k=kernel, L_k=L_kx, LL_k=LL_kx,
+            nugget_gram_matrix=nugget_gram_matrix,
+        )
+    )
+    dedupe = (
+        bool(stencil_dedupe)
+        if stencil_dedupe != "auto"
+        else getattr(kernel, "stationary", False)
+    )
+
+    points_interior, _, indices_interior = mesh_spatial.interior
+    points_boundary, _, indices_boundary = mesh_spatial.boundary
+    neighbors_interior, neighbor_idx_interior = mesh_spatial.neighbours(
+        point=points_interior, num=stencil_size_interior
+    )
+    neighbors_boundary, neighbor_idx_boundary = mesh_spatial.neighbours(
+        point=points_boundary, num=stencil_size_boundary
+    )
+
+    w_int, u_int = _stencil_coefficients(
+        coeff_batch, mesh_spatial, points_interior, indices_interior,
+        neighbors_interior, neighbor_idx_interior, dedupe,
+    )
+    w_bnd, u_bnd = _stencil_coefficients(
+        coeff_batch, mesh_spatial, points_boundary, indices_boundary,
+        neighbors_boundary, neighbor_idx_boundary, dedupe,
+    )
+
+    N = len(mesh_spatial)
+    points = mesh_spatial.points
+    L = torch.zeros((N, N), dtype=points.dtype, device=points.device)
+    E_sqrtm = torch.zeros((N, N), dtype=points.dtype, device=points.device)
+    L[indices_boundary[:, None], neighbor_idx_boundary] = w_bnd
+    L[indices_interior[:, None], neighbor_idx_interior] = w_int
+    E_sqrtm[indices_boundary, indices_boundary] = u_bnd
+    E_sqrtm[indices_interior, indices_interior] = u_int
+    return L, E_sqrtm

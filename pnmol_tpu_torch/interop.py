@@ -1,0 +1,59 @@
+"""Build the port's objects from NumPy arrays.
+
+Hands a problem, a white-solver cache or a filter state that another
+implementation (for example the JAX package, converted with ``np.asarray``)
+produced to the port, so that both run from the same numbers. Takes NumPy
+arrays only; everything lands as float64 on ``device``.
+"""
+
+import numpy as np
+import torch
+
+from pnmol_tpu_torch import config, mesh
+from pnmol_tpu_torch.models import problems
+from pnmol_tpu_torch.ops import rv
+from pnmol_tpu_torch.solvers import pdefilter, white
+
+
+def _tensor(array, device):
+    return torch.tensor(np.asarray(array), dtype=config.default_dtype(), device=device)
+
+
+def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device):
+    """A discretized linear Dirichlet problem from its arrays: ``L`` and
+    ``E_sqrtm`` (d, d), ``B`` (b, d), ``R_sqrtm`` (b, b), ``y0`` (d,) and the
+    mesh points (d, dim)."""
+    pde = problems.LinearEvolutionDirichlet(
+        diffop=None, diffop_scale=1.0, bbox=None, t0=t0, tmax=tmax, y0_fun=None
+    )
+    pde.mesh_spatial = mesh.RectangularMesh(np.asarray(points), device=device)
+    pde.L = _tensor(L, device)
+    pde.E_sqrtm = _tensor(E_sqrtm, device)
+    pde.B = _tensor(B, device)
+    pde.R_sqrtm = _tensor(R_sqrtm, device)
+    pde.y0 = _tensor(y0, device)
+    return pde
+
+
+def white_cache(*, A1d, Ql, L, B, E_bc_sqrtm, device):
+    """A :class:`pnmol_tpu_torch.solvers.white.WhiteSolverCache`."""
+    return white.WhiteSolverCache(
+        A1d=_tensor(A1d, device),
+        Ql=_tensor(Ql, device),
+        L=_tensor(L, device),
+        B=_tensor(B, device),
+        E_bc_sqrtm=_tensor(E_bc_sqrtm, device),
+    )
+
+
+def filter_state(*, t, mean, cov_sqrtm, device):
+    """A :class:`pnmol_tpu_torch.solvers.pdefilter.PDEFilterState` with mean
+    (n, d) and covariance factor (D, D)."""
+    mean = _tensor(mean, device)
+    return pdefilter.PDEFilterState(
+        t=float(t),
+        y=rv.MultivariateNormal(mean=mean, cov_sqrtm=_tensor(cov_sqrtm, device)),
+        error_estimate=None,
+        reference_state=None,
+        diffusion_squared_local=mean.new_zeros(()),
+    )

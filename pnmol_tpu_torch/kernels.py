@@ -1,0 +1,140 @@
+"""Covariance kernels with shape-polymorphic Gram evaluation.
+
+Counterpart of :mod:`pnmol_tpu.kernels`, with the same call convention:
+scalar pair -> scalar; equal-shape ``(N, d)`` inputs -> diagonal ``(N,)``;
+``(N, d) x (d, K)`` -> full Gram ``(N, K)`` (callers pass ``k(X, Y.T)``).
+Pairwise functions are batched with ``torch.func.vmap``, so they must stay
+vmap-safe: no Python branching on tensor values.
+"""
+
+import abc
+import dataclasses
+
+import torch
+from torch.func import vmap
+
+
+class Kernel(abc.ABC):
+    """Covariance kernel interface."""
+
+    #: True if k(x, y) depends on x - y only (enables stencil dedupe).
+    stationary: bool = False
+
+    @abc.abstractmethod
+    def __call__(self, X, Y):
+        raise NotImplementedError
+
+
+def _gram_dispatch(pairwise, X, Y):
+    """Shape-polymorphic evaluation of a pairwise kernel function."""
+    if X.ndim <= 1 and Y.ndim <= 1 and X.ndim == Y.ndim:
+        return pairwise(X, Y)
+    if X.shape == Y.shape:
+        return vmap(pairwise, in_dims=(0, 0))(X, Y)
+    # Full Gram matrix: X (N, d), Y (d, K) -> (N, K)
+    row = vmap(pairwise, in_dims=(0, None))
+    return vmap(row, in_dims=(None, 1), out_dims=1)(X, Y)
+
+
+class PairwiseKernel(Kernel):
+    """Kernel defined through a function of two points."""
+
+    @abc.abstractmethod
+    def pairwise(self, x, y):
+        raise NotImplementedError
+
+    def __call__(self, X, Y):
+        return _gram_dispatch(self.pairwise, X, Y)
+
+    def __add__(self, other):
+        self_pairwise, other_pairwise = self.pairwise, other.pairwise
+
+        def summed(x, y):
+            return self_pairwise(x, y) + other_pairwise(x, y)
+
+        out = Lambda(summed)
+        out.stationary = self.stationary and getattr(other, "stationary", False)
+        return out
+
+
+class Lambda(PairwiseKernel):
+    """Wrap an arbitrary pairwise function as a kernel."""
+
+    def __init__(self, fun, /):
+        self._fun = fun
+
+    def pairwise(self, x, y):
+        return self._fun(x, y)
+
+
+def _sqdist(x, y):
+    diff = x - y
+    return torch.dot(diff, diff)
+
+
+@dataclasses.dataclass(frozen=True)
+class RadialKernel(PairwiseKernel):
+    r"""k(x, y) = output_scale^2 * phi(||x - y|| * input_scale).
+
+    Full Grams use the distance trick ``|x|^2 + |y|^2 - 2 x.y`` on centered
+    points, the arithmetic of :func:`pnmol_tpu.ops.pallas_gram.gram_fast_jnp`
+    (the plain form the JAX package uses off the TPU). The pairwise form is
+    the autodiff surface of the discretization layer.
+    """
+
+    input_scale: float = 1.0
+    output_scale: float = 1.0
+
+    stationary = True
+
+    def _phi(self, d2):
+        """The radial profile as a function of the squared distance."""
+        raise NotImplementedError
+
+    def __call__(self, X, Y):
+        if X.ndim == 2 and Y.ndim == 2 and X.shape != Y.shape and X.shape[1] == Y.shape[0]:
+            center = X.mean(dim=0, keepdim=True)
+            x = X - center
+            y = Y.T - center
+            d2 = (x * x).sum(dim=1)[:, None] + (y * y).sum(dim=1)[None, :] - 2.0 * x @ y.T
+            return self._phi(torch.clamp(d2, min=0.0))
+        return _gram_dispatch(self.pairwise, X, Y)
+
+
+@dataclasses.dataclass(frozen=True)
+class SquareExponential(RadialKernel):
+    def _phi(self, d2):
+        return self.output_scale**2 * torch.exp(-d2 * self.input_scale**2 / 2.0)
+
+    def pairwise(self, x, y):
+        r2 = _sqdist(x, y) * self.input_scale**2
+        return self.output_scale**2 * torch.exp(-r2 / 2.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern52(RadialKernel):
+    """Matern(5/2). Not twice differentiable at x = y; the discretization
+    layer patches the removable singularity."""
+
+    def _phi(self, d2):
+        scaled = torch.sqrt(5.0 * d2 * self.input_scale**2)
+        poly = 1.0 + scaled + scaled**2 / 3.0
+        return self.output_scale**2 * poly * torch.exp(-scaled)
+
+    def pairwise(self, x, y):
+        r2 = _sqdist(x, y)
+        scaled = torch.sqrt(5.0 * r2 * self.input_scale**2)
+        poly = 1.0 + scaled + scaled**2 / 3.0
+        return self.output_scale**2 * poly * torch.exp(-scaled)
+
+
+@dataclasses.dataclass(frozen=True)
+class WhiteNoise(PairwiseKernel):
+    """k(x, y) = output_scale^2 * 1[x == y]."""
+
+    output_scale: float = 1.0
+
+    stationary = True
+
+    def pairwise(self, x, y):
+        return self.output_scale**2 * torch.all(x == y).to(x.dtype)

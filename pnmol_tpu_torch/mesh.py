@@ -1,0 +1,117 @@
+"""1-D rectangular meshes with neighbour queries (counterpart of
+:mod:`pnmol_tpu.mesh`).
+
+Neighbour search runs once at problem setup, on the host, as an exact
+NumPy brute-force k-NN over the float64 host copy of the points. Results
+become tensors on the mesh's device.
+"""
+
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from pnmol_tpu_torch import config
+
+_TREE_CUTOVER = 2048
+
+
+def _check_brute_force_size(n):
+    # the JAX package switches to its native KD-tree above the cutover
+    if n > _TREE_CUTOVER:
+        raise NotImplementedError(
+            f"meshes of {n} > {_TREE_CUTOVER} points need the native k-NN, "
+            "which is not ported yet (ROADMAP queue 1, item 12)"
+        )
+
+
+def _knn_host(points: np.ndarray, queries: np.ndarray, k: int):
+    """Indices of the k nearest neighbours for each query point (host)."""
+    n = points.shape[0]
+    _check_brute_force_size(n)
+    k = min(k, n)
+    d2 = ((queries[:, None, :] - points[None, :, :]) ** 2).sum(-1)
+    idx = np.argpartition(d2, kth=k - 1, axis=1)[:, :k]
+    order = np.take_along_axis(d2, idx, axis=1).argsort(axis=1)
+    return np.take_along_axis(idx, order, axis=1)
+
+
+class RectangularMesh:
+    """Tensor-product grid over an axis-aligned bounding box.
+
+    ``points`` (N, dim) live on ``device``; a float64 host copy serves the
+    setup geometry (neighbour search, boundary classification).
+    """
+
+    def __init__(self, points, *, device):
+        pts_np = np.asarray(points, dtype=np.float64)
+        self._points_host = pts_np
+        self._bbox_host = np.stack((pts_np.min(axis=0), pts_np.max(axis=0)), axis=-1)
+        self.device = torch.device(device)
+        self.points = torch.tensor(pts_np, dtype=config.default_dtype(), device=self.device)
+
+    @classmethod
+    def from_bbox_1d(cls, bbox, *, device, step=None, num=None):
+        bbox = np.asarray(bbox, dtype=np.float64)
+        if (step is None) == (num is None):
+            raise ValueError("Provide exactly one of step or num.")
+        if step is not None:
+            num = int((bbox[1] - bbox[0]) / step) + 1
+        grid = np.linspace(bbox[0], bbox[1], num=num, endpoint=True)
+        return cls(grid.reshape(-1, 1), device=device)
+
+    def __len__(self):
+        return self.points.shape[0]
+
+    @property
+    def fill_distance(self):
+        """Largest distance from any point to its nearest distinct neighbour."""
+        pts = self._points_host
+        _check_brute_force_size(pts.shape[0])
+        d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        return float(np.sqrt(d2.min(axis=1).max()))
+
+    def neighbours(self, point, num):
+        """k nearest mesh points for each query point (host-side, setup only).
+
+        Returns ``(points (q, num, dim), indices (q, num))``.
+        """
+        if num <= 0:
+            raise ValueError("num >= 1 required!")
+        point = torch.as_tensor(point)
+        queries = np.atleast_2d(point.cpu().numpy())
+        indices = _knn_host(self._points_host, queries, num)
+        if point.ndim == 1:
+            indices = indices[0]
+        indices = torch.as_tensor(indices, device=self.device)
+        return self.points[indices], indices
+
+    @cached_property
+    def _boundary_mask_host(self):
+        bbox = self._bbox_host
+        on_face = (self._points_host == bbox[None, :, 0]) | (
+            self._points_host == bbox[None, :, 1]
+        )
+        return on_face.any(axis=1)
+
+    def _classified(self, mask_host):
+        mask = torch.as_tensor(mask_host, device=self.device)
+        return self.points[mask], mask, torch.nonzero(mask).reshape(-1)
+
+    @cached_property
+    def boundary(self):
+        """(boundary points, mask, indices)."""
+        return self._classified(self._boundary_mask_host)
+
+    @cached_property
+    def interior(self):
+        """(interior points, mask, indices)."""
+        return self._classified(~self._boundary_mask_host)
+
+    @cached_property
+    def boundary_projection_matrix(self):
+        """Rows of the identity at the boundary indices."""
+        _, _, indices = self.boundary
+        eye = torch.eye(len(self), dtype=self.points.dtype, device=self.device)
+        return eye[indices, :]

@@ -1,0 +1,66 @@
+"""The port stands alone: it never imports JAX or the JAX package, and
+chip_smoke.py refuses to report a result without a GPU or without the
+repository around it."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "pnmol_tpu")
+
+torch.set_num_threads(1)
+
+
+def _sources():
+    return sorted((REPO / "pnmol_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports_in_source(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, pnmol_tpu_torch\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=300)
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_repository(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the refusal without one")
+    for cwd in (REPO, tmp_path):
+        if cwd == tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", tmp_path)
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
