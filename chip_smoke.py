@@ -5,20 +5,31 @@
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the panel-LQ kernel from ``pnmol_tpu_torch/csrc``;
+2. build: compiles the three kernels of ``pnmol_tpu_torch/csrc`` (one
+   ``nvcc`` each, all started together), printing each build's time;
 3. kernel: the CUDA panel kernel against its plain PyTorch version on the
    card (f64, random slabs at the solver's shapes), a full blocked LQ of the
    2050 x 3586 step pre-array, and both versions' times;
-4. golden: the dx = 0.2 heat solve through the kernel against
-   ``tests/golden/heat_trajectories.npz``;
+   then the radial Gram kernel and the leaf QR kernel against their plain
+   versions (f64 and f32), a full blocked QR of the 3586 x 2050 R-form
+   pre-array, and the kernels', plain versions' and library's times;
+4. golden: the dx = 0.2 heat solve against
+   ``tests/golden/heat_trajectories.npz``, through the panel kernel and
+   through the R-form hook (leaf kernel);
 5. full width: the bench configuration (N = 512, nu = 2, f64): initialize
-   and 20 steps through the kernel path, counting its launches, then the
-   same run on the plain ``torch.linalg.qr`` path, and the two compared.
+   and 20 steps through the panel-kernel path, counting its launches, then
+   the same run on the plain ``torch.linalg.qr`` path, and the two compared;
+6. collocation: the same heat problem at N = 512 with ``L`` and ``E_sqrtm``
+   from global collocation (one radial-Gram kernel launch in the setup),
+   initialize and 20 steps on the panel-kernel path and on the plain path;
+7. R form: the phase-5 problem through the R-form Householder hook (leaf
+   kernel), initialize and 20 steps, against phase 5's plain run.
 
+Every path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record, the card, and
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor pnmol_tpu.
 """
-
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -34,6 +45,11 @@ N_POINTS, NU, DT, NUM_STEPS = 512, 2, 1e-3, 20
 # panel launches of the kernel path at N = 512 with 128-row panels: the
 # init LQ is 1538 x 1538 (13 panels), each step's is 2050 x 3586 (17)
 EXPECTED_LAUNCHES = 13 + 17 * NUM_STEPS
+# leaf launches of the R-form path at N = 512: the initialization stays on
+# the plain update; each step's pre-array is 3586 x 2050, swept in 32-column
+# leaves (16 blocks of 4 leaves, then one leaf of the last 2 columns)
+EXPECTED_LEAF_LAUNCHES = -(-2050 // 32) * NUM_STEPS
+KERNELS = ("panel_lq", "gram_radial", "leaf_qr")
 
 
 def fail(message):
@@ -115,19 +131,104 @@ def phase_kernel(tq, dev):
     return worst, ms, plain_ms
 
 
-def phase_golden(pt, tq, dev):
+def phase_gram(tgram, dev):
+    """The radial Gram kernel against its plain version, and both times."""
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for n, m, dim in ((512, 512, 1), (1000, 777, 2)):
+        for dtype in (torch.float64, torch.float32):
+            x = torch.tensor(rng.uniform(size=(n, dim)), dtype=dtype, device=dev)
+            y = torch.tensor(rng.uniform(size=(m, dim)), dtype=dtype, device=dev)
+            for phi in ("squared_exponential", "matern52"):
+                got = tgram.gram_radial(x, y, 5.0, 1.3, phi_name=phi)
+                torch.cuda.synchronize()
+                want = tgram.gram_radial_reference(x, y, 5.0, 1.3, phi_name=phi)
+                err = (got - want).abs().max().item()
+                # exp/sqrt rounding only, relative to output_scale^2
+                tol = (1e-12 if dtype == torch.float64 else 1e-5) * 1.3**2
+                print(f"gram kernel vs plain, ({n}, {dim}) x ({m}, {dim}) {phi} {dtype}: "
+                      f"max|dK| {err:.3e} (tol {tol:.3e})", flush=True)
+                check(np.isfinite(err) and err <= tol, f"gram {phi} {n}x{m}: kernel disagrees")
+                if dtype == torch.float64:
+                    worst = max(worst, err)
+
+    # times, dim 1, f64, in turns: plain, kernel, kernel, plain
+    times = {}
+    for n in (512, 4096):
+        x = torch.linspace(0.0, 1.0, n, dtype=torch.float64, device=dev)[:, None]
+        kernel = lambda: tgram.gram_radial(x, x, 5.0, 1.0, phi_name="squared_exponential")  # noqa: E731
+        plain = lambda: tgram.gram_radial_reference(x, x, 5.0, 1.0, phi_name="squared_exponential")  # noqa: E731
+        p = [cuda_ms(plain, 20)]
+        k = [cuda_ms(kernel, 50) for _ in range(2)]
+        p.append(cuda_ms(plain, 20))
+        print(f"gram {n} x {n} f64: kernel {k} ms, plain {p} ms", flush=True)
+        times[n] = (sum(k) / 2, sum(p) / 2)
+    return worst, *times[512]
+
+
+def phase_leaf(tq, dev):
+    """The leaf QR kernel against its plain version, the full R-form sweep,
+    and their times against the plain version and cuSOLVER."""
+    rng = np.random.default_rng(2)
+    cases = [("3586 x 32 (first leaf of a step)", 3586, ()),
+             ("2050 x 32 (last full leaf)", 2050, ()),
+             ("40 x 32", 40, ()),
+             ("2050 x 32, columns 3 and 17 zero", 2050, (3, 17))]
+    worst = 0.0
+    for name, rows, zero_cols in cases:
+        slab = rng.standard_normal((rows, 32))
+        slab[:, list(zero_cols)] = 0.0
+        for dtype in (torch.float64, torch.float32):
+            x = torch.tensor(slab, dtype=dtype, device=dev)
+            vr, t = tq.leaf_qr(x)
+            torch.cuda.synchronize()
+            vr_ref, t_ref = tq.leaf_qr_reference(x)
+            err = max((vr - vr_ref).abs().max().item(), (t - t_ref).abs().max().item())
+            # f64: rounding of one QR, against the slab's scale; f32: against R's
+            tol = (1e-12 * np.abs(slab).max() if dtype == torch.float64
+                   else 1e-4 * vr_ref.abs().max().item())
+            print(f"leaf kernel vs plain, {name} {dtype}: max|dVR|, |dT| {err:.3e} "
+                  f"(tol {tol:.3e})", flush=True)
+            check(np.isfinite(err) and err <= tol, f"leaf {name}: kernel disagrees")
+            check(all(t[k, k].item() == 0.0 for k in zero_cols), f"leaf {name}: tau != 0")
+            if dtype == torch.float64:
+                worst = max(worst, err)
+
+    A = torch.tensor(rng.standard_normal((3586, 2050)), device=dev)
+    R = tq.blocked_qr_r(A)
+    G = A.T @ A
+    rel = ((R.T @ R - G).abs().max() / G.abs().max()).item()
+    print(f"blocked_qr_r 3586 x 2050: max|R^T R - A^T A| / max|A^T A| = {rel:.3e}", flush=True)
+    check(rel <= 1e-12, "blocked QR Gram mismatch")
+    check(torch.all(torch.tril(R, -1) == 0).item(), "blocked QR factor not upper triangular")
+
+    # times, f64, in turns: plain, kernel, kernel, plain
+    x = torch.tensor(rng.standard_normal((3586, 32)), device=dev)
+    p = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
+    k = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
+    p.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
+    print(f"leaf 3586 x 32 f64: kernel {k} ms, plain {p} ms", flush=True)
+    qr = [cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3)]
+    sweep = [cuda_ms(lambda: tq.blocked_qr_r(A), 3) for _ in range(2)]
+    qr.append(cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3))
+    print(f"R-form sweep 3586 x 2050 f64: blocked_qr_r {sweep} ms, "
+          f"torch.linalg.qr(mode='r') {qr} ms", flush=True)
+    return worst, sum(k) / 2, sum(p) / 2
+
+
+def phase_golden(pt, dev, wrapper, factorization, launches, label):
     with np.load(GOLDEN) as data:
         golden = dict(data)
     heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=dev)
     solver = pt.white.LinearWhiteNoiseEK1(
         steprule=pt.odetools.step.Constant(0.1),
         spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise(),
-        factorization="householder",
+        factorization=factorization,
     )
-    before = tq.panel_lq.launches
+    before = wrapper.launches
     sol = solver.solve(heat)
     torch.cuda.synchronize()
-    check(tq.panel_lq.launches - before == 6, "golden run did not go through the kernel")
+    check(wrapper.launches - before == launches, f"golden run did not go through {label}")
     mean = sol.mean.cpu().numpy()
     diffusion = float(sol.diffusion_squared_calibrated)
     std = torch.sqrt(torch.einsum("ij,ij->i", sol.cov_sqrtm[-1], sol.cov_sqrtm[-1])).cpu().numpy()
@@ -135,7 +236,7 @@ def phase_golden(pt, tq, dev):
     ok_mean = np.allclose(mean, golden["white_mean"], rtol=1e-10, atol=1e-13)
     ok_diff = np.allclose(diffusion, golden["white_diffusion"], rtol=1e-10)
     ok_std = np.allclose(std, golden["white_final_std"], rtol=1e-8, atol=1e-12)
-    print(f"golden dx=0.2 through the kernel: max|dmean| "
+    print(f"golden dx=0.2 through {label}: max|dmean| "
           f"{np.abs(mean - golden['white_mean']).max():.3e}, diffusion rel "
           f"{abs(diffusion / float(golden['white_diffusion']) - 1):.3e}, max|dstd| "
           f"{np.abs(std - golden['white_final_std']).max():.3e}", flush=True)
@@ -174,44 +275,126 @@ def run_full_width(pt, heat, factorization):
     )
 
 
-def phase_full_width(pt, tq, dev, card_line):
+def report_run(name, run, card_line):
+    """No NaN, heat decays; prints init seconds and steps/s."""
+    mean, cov = run["state"].y.mean, run["state"].y.cov_sqrtm
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()
+               and torch.isfinite(run["diffusion"])), f"{name}: NaN or inf")
+    check(mean[0].abs().max() < run["y0_mean"][0].abs().max(), f"{name}: heat did not decay")
+    print(f"N={N_POINTS} {name}: init {run['init_s']:.3f} s, {run['steps_per_s']:.2f} steps/s "
+          f"over {NUM_STEPS} steps ({run['steady_steps_per_s']:.2f} after the first), "
+          f"max|u| {run['y0_mean'][0].abs().max().item():.6f} -> "
+          f"{mean[0].abs().max().item():.6f} [{card_line}]", flush=True)
+
+
+def compare_runs(label, run, plain):
+    """Mean and covariance Gram <= 1e-8 relative, diffusion <= 1e-6."""
+    m1, m2 = run["state"].y.mean, plain["state"].y.mean
+    C1, C2 = run["state"].y.cov_sqrtm, plain["state"].y.cov_sqrtm
+    G1, G2 = C1 @ C1.T, C2 @ C2.T
+    mean_rel = ((m1 - m2).abs().max() / m2.abs().max()).item()
+    gram_rel = ((G1 - G2).abs().max() / G2.abs().max()).item()
+    diff_rel = abs(run["diffusion"].item() / plain["diffusion"].item() - 1)
+    print(f"{label} after {NUM_STEPS} steps: mean rel {mean_rel:.3e}, "
+          f"cov Gram rel {gram_rel:.3e}, diffusion rel {diff_rel:.3e}", flush=True)
+    check(mean_rel <= 1e-8 and gram_rel <= 1e-8, f"{label}: paths disagree")
+    # looser: the diffusion whitens through the near-singular innovation
+    # directions of the noise-free Dirichlet rows, which amplify rounding
+    check(diff_rel <= 1e-6, f"{label}: diffusions disagree")
+
+
+def reset_counts(wrappers):
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+
+
+def read_counts(wrappers):
+    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+
+def check_counts(label, counts, expected):
+    print(f"{label}: launches {counts} (expected {expected})", flush=True)
+    check(counts == expected, f"{label}: kernel launch counts")
+
+
+def phase_full_width(pt, dev, wrappers, card_line):
     dx = 1.0 / (N_POINTS - 1)
     heat = pt.pde.examples.heat_1d_discretized(
         dx=dx, tmax=NUM_STEPS * DT,
         kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx), device=dev,
     )
-    tq.panel_lq.launches = 0
+    reset_counts(wrappers)
     hh = run_full_width(pt, heat, "householder")
-    launches = tq.panel_lq.launches
     plain = run_full_width(pt, heat, None)
-    check(tq.panel_lq.launches == launches, "the plain path launched the kernel")
-    print(f"N={N_POINTS} kernel path: panel launches {launches} (expected {EXPECTED_LAUNCHES})",
-          flush=True)
-    check(launches == EXPECTED_LAUNCHES, "kernel launch count")
+    counts = read_counts(wrappers)
+    check_counts(f"N={N_POINTS} FD path", counts,
+                 {"panel_lq": EXPECTED_LAUNCHES, "gram_radial": 0, "leaf_qr": 0})
+    report_run("householder kernel", hh, card_line)
+    report_run("plain torch.linalg.qr", plain, card_line)
+    compare_runs("kernel path vs plain path", hh, plain)
+    return counts["panel_lq"], heat, plain
 
-    for name, run in (("householder kernel", hh), ("plain torch.linalg.qr", plain)):
-        mean, cov = run["state"].y.mean, run["state"].y.cov_sqrtm
-        check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()
-                   and torch.isfinite(run["diffusion"])), f"{name}: NaN or inf")
-        check(mean[0].abs().max() < run["y0_mean"][0].abs().max(), f"{name}: heat did not decay")
-        print(f"N={N_POINTS} {name}: init {run['init_s']:.3f} s, {run['steps_per_s']:.2f} steps/s "
-              f"over {NUM_STEPS} steps ({run['steady_steps_per_s']:.2f} after the first), "
-              f"max|u| {run['y0_mean'][0].abs().max().item():.6f} -> "
-              f"{mean[0].abs().max().item():.6f} [{card_line}]", flush=True)
 
-    m1, m2 = hh["state"].y.mean, plain["state"].y.mean
-    C1, C2 = hh["state"].y.cov_sqrtm, plain["state"].y.cov_sqrtm
-    G1, G2 = C1 @ C1.T, C2 @ C2.T
-    mean_rel = ((m1 - m2).abs().max() / m2.abs().max()).item()
-    gram_rel = ((G1 - G2).abs().max() / G2.abs().max()).item()
-    diff_rel = abs(hh["diffusion"].item() / plain["diffusion"].item() - 1)
-    print(f"kernel path vs plain path after {NUM_STEPS} steps: mean rel {mean_rel:.3e}, "
-          f"cov Gram rel {gram_rel:.3e}, diffusion rel {diff_rel:.3e}", flush=True)
-    check(mean_rel <= 1e-8 and gram_rel <= 1e-8, "kernel path disagrees with the plain path")
-    # looser: the diffusion whitens through the near-singular innovation
-    # directions of the noise-free Dirichlet rows, which amplify rounding
-    check(diff_rel <= 1e-6, "diffusion disagrees with the plain path")
-    return launches
+def phase_collocation(pt, dev, wrappers, card_line):
+    """heat_1d on the 512-point mesh with L and E_sqrtm from global
+    collocation (SquareExponential(input_scale=5), nuggets 1e-12 on K and
+    1e-6 on E); B, R_sqrtm and y0 as the mixin sets them."""
+    dx = 1.0 / (N_POINTS - 1)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heat = pt.pde.examples.heat_1d_discretized(
+        dx=dx, tmax=NUM_STEPS * DT,
+        kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx), device=dev,
+    )
+    D, E_sqrtm = pt.discretize.collocation_global(
+        pt.diffops.laplace(), heat.mesh_spatial,
+        kernel=pt.kernels.SquareExponential(input_scale=5.0),
+        nugget_gram_matrix=1e-12, nugget_cholesky_E=1e-6, symmetrize_cholesky_E=True,
+    )
+    heat.L = heat.diffop_scale * D
+    heat.E_sqrtm = heat.diffop_scale * E_sqrtm
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(heat.L).all() and torch.isfinite(heat.E_sqrtm).all()),
+          "collocation: NaN or inf in L or E_sqrtm")
+    check_counts(f"N={N_POINTS} collocation setup ({setup_s:.3f} s)", read_counts(wrappers),
+                 {"panel_lq": 0, "gram_radial": 1, "leaf_qr": 0})
+    hh = run_full_width(pt, heat, "householder")
+    plain = run_full_width(pt, heat, None)
+    counts = read_counts(wrappers)
+    check_counts(f"N={N_POINTS} collocation path", counts,
+                 {"panel_lq": EXPECTED_LAUNCHES, "gram_radial": 1, "leaf_qr": 0})
+    report_run("collocation, householder kernel", hh, card_line)
+    report_run("collocation, plain torch.linalg.qr", plain, card_line)
+    compare_runs("collocation: kernel path vs plain path", hh, plain)
+    return counts["gram_radial"]
+
+
+def phase_r_form(pt, tq, wrappers, heat, plain, card_line):
+    """The phase-5 problem through the R-form hook, against phase 5's plain run."""
+    reset_counts(wrappers)
+    rf = run_full_width(pt, heat, tq.make_householder_factorization())
+    counts = read_counts(wrappers)
+    check_counts(f"N={N_POINTS} R-form path", counts,
+                 {"panel_lq": 0, "gram_radial": 0, "leaf_qr": EXPECTED_LEAF_LAUNCHES})
+    report_run("R-form hook, leaf kernel", rf, card_line)
+    compare_runs("R-form path vs plain path", rf, plain)
+    return counts["leaf_qr"]
+
+
+def phase_build(cuda_build):
+    """One nvcc per source, all started together."""
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = cuda_build.build(name)
+        return lib, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = {name: pool.submit(timed, name) for name in KERNELS}
+    for future in futures.values():
+        lib, seconds = future.result()
+        print(f"build: {lib.name} in {seconds:.2f} s", flush=True)
 
 
 def main():
@@ -221,29 +404,44 @@ def main():
     print(f"card: {card_line}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     import pnmol_tpu_torch as pt
+    from pnmol_tpu_torch.ops import cuda_build
+    from pnmol_tpu_torch.ops import gram as tgram
     from pnmol_tpu_torch.ops import qr_householder as tq
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    lib = tq.build_panel_lq()
-    tq._library()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    wrappers = {"panel_lq": tq.panel_lq, "gram_radial": tgram.gram_radial,
+                "leaf_qr": tq.leaf_qr}
+    phase_build(cuda_build)
 
-    worst, ms, plain_ms = phase_kernel(tq, dev)
-    phase_golden(pt, tq, dev)
-    launches = phase_full_width(pt, tq, dev, card_line)
+    panel = phase_kernel(tq, dev)
+    gram = phase_gram(tgram, dev)
+    leaf = phase_leaf(tq, dev)
+    phase_golden(pt, dev, tq.panel_lq, "householder", 6, "the panel kernel")
+    # the 44 x 26 step pre-array is one leaf: one launch per step
+    phase_golden(pt, dev, tq.leaf_qr, tq.make_householder_factorization(), 5,
+                 "the R-form hook (leaf kernel)")
+    panel_launches, heat, plain = phase_full_width(pt, dev, wrappers, card_line)
+    gram_launches = phase_collocation(pt, dev, wrappers, card_line)
+    leaf_launches = phase_r_form(pt, tq, wrappers, heat, plain, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "panel_lq",
-        "route": "cuda",
-        "source": "pnmol_tpu_torch/csrc/panel_lq.cu",
-        "replaces": "pnmol_tpu/ops/qr_householder.py:535",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    records = []
+    for name, replaces, launches, (worst, ms, plain_ms) in (
+        ("panel_lq", "pnmol_tpu/ops/qr_householder.py:535", panel_launches, panel),
+        ("gram_radial", "pnmol_tpu/ops/pallas_gram.py:51", gram_launches, gram),
+        ("leaf_qr", "pnmol_tpu/ops/qr_householder.py:75", leaf_launches, leaf),
+    ):
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pnmol_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": worst,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": records}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,6 +12,12 @@ hand-written CUDA panel kernel (``csrc/panel_lq.cu``) on the GPU::
         steprule=pt.odetools.step.Constant(0.1), factorization="householder")
     sol = solver.solve(heat)
 
+Two further paths carry the other two kernels: global collocation
+(``discretize.collocation_global`` and ``scheme="collocation"``), whose
+radial Gram runs ``csrc/gram_radial.cu`` on the GPU at N >= 512, and the
+R-form step hook ``ops.qr_householder.make_householder_factorization()``,
+whose tall blocked QR runs ``csrc/leaf_qr.cu``.
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """

@@ -1,10 +1,12 @@
-"""Probabilistic finite differences (counterpart of the FD path of
-:mod:`pnmol_tpu.discretize`).
+"""Probabilistic finite differences and global collocation (counterpart of
+the FD and collocation paths of :mod:`pnmol_tpu.discretize`).
 
 Kernel (RKHS) finite differences give a differentiation matrix ``L`` and a
 diagonal discretization-error factor ``E_sqrtm``. The per-stencil systems
 are solved in one ``torch.func.vmap`` batch; for stationary kernels only the
 distinct neighbour-offset patterns are solved (O(1) on a uniform grid).
+Global collocation gives a dense ``L`` and a dense Cholesky ``E_sqrtm`` from
+three N x N Grams, of which the kernel's own reaches the CUDA Gram kernel.
 """
 
 from functools import partial
@@ -132,3 +134,36 @@ def fd_probabilistic(diffop, mesh_spatial, kernel=None, stencil_size_interior=3,
     E_sqrtm[indices_boundary, indices_boundary] = u_bnd
     E_sqrtm[indices_interior, indices_interior] = u_int
     return L, E_sqrtm
+
+
+def collocation_global(diffop, mesh_spatial, kernel=None, nugget_gram_matrix=0.0,
+                       nugget_cholesky_E=0.0, symmetrize_cholesky_E=False):
+    """Dense global (unsymmetric) collocation: ``D = (L_k K^{-1})^T`` and the
+    Cholesky factor of the error covariance ``E = LL_k - D L_k^T``, both
+    (N, N) on the mesh's device.
+
+    ``K = k(X, X^T) + nugget_gram_matrix I`` is a radial Gram (the CUDA
+    kernel at N >= 512 on a GPU); ``L_k`` and ``LL_k`` are the Grams of the
+    kernel pushed through ``diffop`` once and twice (``torch.func``).
+    ``torch.linalg.cholesky`` raises where ``E`` is not positive definite
+    (the JAX package returns NaN there).
+    """
+    if kernel is None:
+        kernel = kernels.SquareExponential(input_scale=1.0, output_scale=1.0)
+
+    L_kx, LL_kx = _differentiate_kernel(diffop, kernel)
+
+    points = mesh_spatial.points
+    N = points.shape[0]
+    eye = torch.eye(N, dtype=points.dtype, device=points.device)
+    gram_k = kernel(points, points.T) + nugget_gram_matrix * eye
+    gram_Lk = L_kx(points, points.T)
+    gram_LLk = LL_kx(points, points.T)
+
+    chol_k = torch.linalg.cholesky(gram_k)
+    D = torch.cholesky_solve(gram_Lk.T, chol_k).T
+    E = gram_LLk - D @ gram_Lk.T
+    if symmetrize_cholesky_E:
+        E = 0.5 * (E + E.T)
+    E = E + nugget_cholesky_E * eye
+    return D, torch.linalg.cholesky(E)

@@ -13,6 +13,8 @@ import dataclasses
 import torch
 from torch.func import vmap
 
+from pnmol_tpu_torch.ops import gram
+
 
 class Kernel(abc.ABC):
     """Covariance kernel interface."""
@@ -76,10 +78,13 @@ def _sqdist(x, y):
 class RadialKernel(PairwiseKernel):
     r"""k(x, y) = output_scale^2 * phi(||x - y|| * input_scale).
 
-    Full Grams use the distance trick ``|x|^2 + |y|^2 - 2 x.y`` on centered
-    points, the arithmetic of :func:`pnmol_tpu.ops.pallas_gram.gram_fast_jnp`
-    (the plain form the JAX package uses off the TPU). The pairwise form is
-    the autodiff surface of the discretization layer.
+    Full Grams take the distance trick ``|x|^2 + |y|^2 - 2 x.y`` on centred
+    points, fused with the radial profile (:mod:`pnmol_tpu_torch.ops.gram`),
+    with the JAX package's dispatch rule: the CUDA kernel for a full Gram of
+    at least ``_PALLAS_MIN_ELEMS`` elements on a CUDA tensor with Python-float
+    scales, the plain version otherwise (which also keeps the kernel out of
+    the vmapped stencil Grams of the FD layer). The pairwise form is the
+    autodiff surface of the discretization layer.
     """
 
     input_scale: float = 1.0
@@ -87,24 +92,39 @@ class RadialKernel(PairwiseKernel):
 
     stationary = True
 
-    def _phi(self, d2):
-        """The radial profile as a function of the squared distance."""
-        raise NotImplementedError
+    # subclass marker for the fused Gram path (None disables it)
+    _PHI_NAME = None
+    _PALLAS_MIN_ELEMS = 512 * 512
 
     def __call__(self, X, Y):
-        if X.ndim == 2 and Y.ndim == 2 and X.shape != Y.shape and X.shape[1] == Y.shape[0]:
-            center = X.mean(dim=0, keepdim=True)
-            x = X - center
-            y = Y.T - center
-            d2 = (x * x).sum(dim=1)[:, None] + (y * y).sum(dim=1)[None, :] - 2.0 * x @ y.T
-            return self._phi(torch.clamp(d2, min=0.0))
+        if (
+            self._PHI_NAME is not None
+            and X.ndim == 2
+            and Y.ndim == 2
+            and X.shape != Y.shape
+            and X.shape[1] == Y.shape[0]
+        ):
+            # Full-Gram convention: callers pass (X, Y.T).
+            points_y = Y.T
+            static_scales = isinstance(self.input_scale, (int, float)) and isinstance(
+                self.output_scale, (int, float)
+            )
+            gram_fn = (
+                gram.gram_radial
+                if static_scales
+                and X.device.type == "cuda"
+                and X.shape[0] * points_y.shape[0] >= self._PALLAS_MIN_ELEMS
+                else gram.gram_radial_reference
+            )
+            return gram_fn(
+                X, points_y, self.input_scale, self.output_scale, phi_name=self._PHI_NAME
+            )
         return _gram_dispatch(self.pairwise, X, Y)
 
 
 @dataclasses.dataclass(frozen=True)
 class SquareExponential(RadialKernel):
-    def _phi(self, d2):
-        return self.output_scale**2 * torch.exp(-d2 * self.input_scale**2 / 2.0)
+    _PHI_NAME = "squared_exponential"
 
     def pairwise(self, x, y):
         r2 = _sqdist(x, y) * self.input_scale**2
@@ -116,10 +136,7 @@ class Matern52(RadialKernel):
     """Matern(5/2). Not twice differentiable at x = y; the discretization
     layer patches the removable singularity."""
 
-    def _phi(self, d2):
-        scaled = torch.sqrt(5.0 * d2 * self.input_scale**2)
-        poly = 1.0 + scaled + scaled**2 / 3.0
-        return self.output_scale**2 * poly * torch.exp(-scaled)
+    _PHI_NAME = "matern52"
 
     def pairwise(self, x, y):
         r2 = _sqdist(x, y)

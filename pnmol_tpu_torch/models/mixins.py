@@ -7,28 +7,38 @@ from pnmol_tpu_torch import discretize
 
 
 class DiscretizationMixIn:
-    """Probabilistic finite-difference discretization of scalar PDEs."""
+    """Probabilistic spatial discretization of scalar PDEs:
+    ``scheme="fd"`` (localized probabilistic finite differences) or
+    ``scheme="collocation"`` (dense global collocation, with the JAX
+    package's nuggets)."""
 
     def discretize(self, *, mesh_spatial, kernel, stencil_size_interior,
                    stencil_size_boundary, nugget_gram_matrix=0.0, scheme="fd"):
-        if scheme != "fd":
-            raise NotImplementedError(
-                f"discretization scheme {scheme!r} is not ported yet "
-                "(ROADMAP queue 1, item 14)"
-            )
         if not isinstance(self, DirichletMixIn):
             raise NotImplementedError(
                 "only Dirichlet boundaries are ported; Neumann boundaries are "
                 "ROADMAP queue 1, item 10"
             )
-        L, E_sqrtm = discretize.fd_probabilistic(
-            self.diffop,
-            mesh_spatial=mesh_spatial,
-            kernel=kernel,
-            stencil_size_interior=stencil_size_interior,
-            stencil_size_boundary=stencil_size_boundary,
-            nugget_gram_matrix=nugget_gram_matrix,
-        )
+        if scheme == "fd":
+            L, E_sqrtm = discretize.fd_probabilistic(
+                self.diffop,
+                mesh_spatial=mesh_spatial,
+                kernel=kernel,
+                stencil_size_interior=stencil_size_interior,
+                stencil_size_boundary=stencil_size_boundary,
+                nugget_gram_matrix=nugget_gram_matrix,
+            )
+        elif scheme == "collocation":
+            L, E_sqrtm = discretize.collocation_global(
+                self.diffop,
+                mesh_spatial=mesh_spatial,
+                kernel=kernel,
+                nugget_gram_matrix=max(nugget_gram_matrix, 1e-12),
+                nugget_cholesky_E=1e-12,
+                symmetrize_cholesky_E=True,
+            )
+        else:
+            raise ValueError(f"Unknown discretization scheme: {scheme!r}")
         self.L = self.diffop_scale * L
         self.E_sqrtm = self.diffop_scale * E_sqrtm
         self.mesh_spatial = mesh_spatial

@@ -1,6 +1,7 @@
-"""Numerical layer: random variables, IWP prior, square-root Kalman blocks
-and the Householder-LQ factorization with its CUDA panel kernel."""
+"""Numerical layer: random variables, IWP prior, square-root Kalman blocks,
+the Householder factorizations with their CUDA kernels, and the radial Gram
+with its CUDA kernel (all kernels built by :mod:`.cuda_build`)."""
 
-from pnmol_tpu_torch.ops import iwp, qr_householder, rv, sqrt
+from pnmol_tpu_torch.ops import cuda_build, gram, iwp, qr_householder, rv, sqrt
 
-__all__ = ["iwp", "qr_householder", "rv", "sqrt"]
+__all__ = ["cuda_build", "gram", "iwp", "qr_householder", "rv", "sqrt"]

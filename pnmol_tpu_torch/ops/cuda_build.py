@@ -1,0 +1,108 @@
+"""Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
+
+Every source ``csrc/<name>.cu`` exports two plain C functions,
+``<name>_f64`` and ``<name>_f32``, that take device pointers and integer
+sizes, then the device index and the stream, launch on that stream without
+synchronizing, and return the launch's ``cudaError_t`` (0 = success). Each
+source is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``_build/<name>-<hash>/``, keyed by the hash of the source and the flags, so
+an edited source builds anew and an unchanged one is reused. Nothing here
+falls back: a missing ``nvcc``, a failed build or a failed launch raises.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+
+import torch
+
+_PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+_CSRC = _PACKAGE / "csrc"
+_BUILD_DIR = _PACKAGE / "_build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+_DTYPE_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = pathlib.Path(CUDA_HOME or "", "bin", "nvcc")
+    if not CUDA_HOME or not nvcc.exists():
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built"
+        )
+    return str(nvcc)
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` into a shared library (once per source).
+
+    Returns the library's path. Raises if ``nvcc`` is missing or the compile
+    fails.
+    """
+    source_path = _CSRC / f"{name}.cu"
+    source = source_path.read_bytes()
+    digest = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    out_dir = _BUILD_DIR / f"{name}-{digest[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source_path)],
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry_points(name: str, argtypes: tuple):
+    """``{dtype: C function}`` of ``csrc/<name>.cu``, built and bound once.
+
+    ``argtypes`` are the ctypes types of the kernel's own arguments; the
+    device index and the stream are appended.
+    """
+    lib = ctypes.CDLL(str(build(name)))
+    functions = {}
+    for dtype, suffix in _DTYPE_SUFFIX.items():
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = [*argtypes, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        functions[dtype] = fn
+    return functions
+
+
+def check_input(name: str, tensor, ndim: int = 2) -> None:
+    """Raise unless ``tensor`` is a contiguous CUDA float64/float32 tensor of
+    ``ndim`` dimensions (what every kernel of ``csrc/`` takes)."""
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {tensor.device}")
+    if tensor.dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"{name}: dtype must be float64 or float32, got {tensor.dtype}")
+    if tensor.ndim != ndim or not tensor.is_contiguous():
+        raise ValueError(f"{name}: input must be a contiguous {ndim}-D tensor")
+
+
+def launch(name: str, argtypes: tuple, like, *args) -> None:
+    """Launch ``csrc/<name>.cu``'s kernel for ``like``'s dtype on the current
+    stream of ``like``'s device; raise if the launch failed."""
+    fn = entry_points(name, argtypes)[like.dtype]
+    err = fn(*args, like.device.index, torch.cuda.current_stream(like.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")

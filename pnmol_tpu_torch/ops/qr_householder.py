@@ -1,7 +1,9 @@
-"""Blocked Householder LQ with a hand-written CUDA panel kernel.
+"""Blocked Householder LQ and QR with hand-written CUDA panel kernels.
 
-Counterpart of the LQ half of :mod:`pnmol_tpu.ops.qr_householder`. The
-sweep is the same compact-WY blocked Householder LQ: each ``(block, cols)``
+Counterpart of :mod:`pnmol_tpu.ops.qr_householder`, in two halves.
+
+The LQ half (the ``factorization="householder"`` path) is the same
+compact-WY blocked Householder LQ: each ``(block, cols)``
 row panel is factorized by ONE panel-kernel launch (:func:`panel_lq`, which
 replaces the TPU kernels ``_block_lq_kernel`` and ``_leaf_lq_kernel``), and
 the rows below take the panel's reflectors as one rank-``block`` trailing
@@ -13,89 +15,52 @@ so every panel starts at diagonal offset 0. The TPU-only machinery of the
 JAX sweep (Mosaic lane quantization, scan superblocks, liveness barriers,
 leaf panels and their merge) has no counterpart here.
 
-On a CPU tensor :func:`panel_lq` runs the plain PyTorch version
-:func:`panel_lq_reference`; on a CUDA tensor it launches the kernel (built
-with ``nvcc`` from ``csrc/panel_lq.cu`` at first use) or raises.
+The R-form half (:func:`blocked_qr_r` and the step hook
+:func:`make_householder_factorization`) is the tall blocked Householder QR:
+each ``(rows, leaf)`` column slab is factorized by ONE leaf-kernel launch
+(:func:`leaf_qr`, which replaces the TPU kernel ``_leaf_kernel``), leaves
+are merged into one block-wide compact WY, and the columns right of the
+block take one rank-``block`` trailing update ``A - V T^T (V^T A)``. The
+TPU-only row quantization, zero-row padding and liveness barriers of the
+JAX sweep have no counterpart here.
+
+On a CPU tensor :func:`panel_lq` and :func:`leaf_qr` run their plain PyTorch
+versions :func:`panel_lq_reference` and :func:`leaf_qr_reference`; on a CUDA
+tensor they launch their kernels (built with ``nvcc`` from
+``csrc/panel_lq.cu`` and ``csrc/leaf_qr.cu`` at first use) or raise.
 """
 
 import ctypes
-import functools
-import hashlib
-import os
-import pathlib
-import subprocess
-import tempfile
 
 import torch
 
-_PACKAGE = pathlib.Path(__file__).resolve().parent.parent
-_SOURCE = _PACKAGE / "csrc" / "panel_lq.cu"
-_BUILD_DIR = _PACKAGE / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from pnmol_tpu_torch.ops import cuda_build
+
+# ctypes types of the panel kernel's own arguments: slab, lv, tT, scratch
+# (device pointers), rows, cols, off
+_PANEL_LQ_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+# the leaf kernel's: slab, vr, t (device pointers), rows, cols
+_LEAF_QR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+# most columns one leaf-kernel launch takes (one per lane of a warp)
+LEAF_QR_MAX_COLS = 32
 
 
 # ---------------------------------------------------------------------------
-# Panel kernel: build, bind, dispatch
+# Panel kernel: plain version and dispatch
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = pathlib.Path(CUDA_HOME or "", "bin", "nvcc")
-    if not CUDA_HOME or not nvcc.exists():
-        raise RuntimeError(
-            "panel_lq: nvcc not found (set CUDA_HOME); the CUDA panel kernel "
-            "cannot be built"
-        )
-    return str(nvcc)
-
-
-def build_panel_lq() -> pathlib.Path:
-    """Compile ``csrc/panel_lq.cu`` into a shared library (once per source).
-
-    The library lands in ``_build/panel_lq-<source hash>/``, so an edited
-    source builds anew and an unchanged one is reused. Raises if ``nvcc`` is
-    missing or the compile fails.
-    """
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out_dir = _BUILD_DIR / f"panel_lq-{digest[:16]}"
-    lib = out_dir / "libpanel_lq.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"panel_lq: nvcc failed ({proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(str(build_panel_lq()))
-    for name in ("panel_lq_f64", "panel_lq_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+def _reflector_scalars(alpha, tail):
+    """``(beta, 1 / (alpha - beta), tau)`` of the reflector that maps
+    ``[alpha, tail]`` to ``beta e_0``, with the TPU kernels' numerics:
+    ``beta = -sign(alpha) ||x||`` (sign(0) = +1), ``tau = (beta - alpha) /
+    beta``, a zero vector gives the identity (tau = 0), no rescaling."""
+    norm = torch.sqrt(alpha * alpha + torch.sum(tail**2))
+    beta = -torch.where(alpha >= 0, 1.0, -1.0).to(alpha.dtype) * norm
+    safe = norm > 0
+    inv_denom = torch.where(safe, 1.0 / torch.where(safe, alpha - beta, 1.0), 0.0)
+    tau = torch.where(safe, (beta - alpha) / torch.where(safe, beta, 1.0), 0.0)
+    return beta, inv_denom, tau
 
 
 def panel_lq_reference(slab, off):
@@ -113,14 +78,7 @@ def panel_lq_reference(slab, off):
     for k in range(rows):
         d = off + k
         x = lv[k].clone()
-        alpha = x[d]
-        norm = torch.sqrt(alpha * alpha + torch.sum(x[d + 1:] ** 2))
-        beta = -torch.where(alpha >= 0, 1.0, -1.0).to(x.dtype) * norm
-        safe = norm > 0
-        inv_denom = torch.where(
-            safe, 1.0 / torch.where(safe, alpha - beta, 1.0), 0.0
-        )
-        tau = torch.where(safe, (beta - alpha) / torch.where(safe, beta, 1.0), 0.0)
+        beta, inv_denom, tau = _reflector_scalars(x[d], x[d + 1:])
         v = torch.zeros_like(x)
         v[d] = 1.0
         v[d + 1:] = x[d + 1:] * inv_denom
@@ -142,12 +100,7 @@ def panel_lq(slab, off):
     """
     if slab.device.type == "cpu":
         return panel_lq_reference(slab, off)
-    if slab.device.type != "cuda":
-        raise ValueError(f"panel_lq: unsupported device {slab.device}")
-    if slab.dtype not in (torch.float64, torch.float32):
-        raise TypeError(f"panel_lq: dtype must be float64 or float32, got {slab.dtype}")
-    if slab.ndim != 2 or not slab.is_contiguous():
-        raise ValueError("panel_lq: slab must be a contiguous 2-D tensor")
+    cuda_build.check_input("panel_lq", slab)
     rows, cols = slab.shape
     off = int(off)
     if rows < 1 or off < 0 or rows > cols - off:
@@ -155,21 +108,14 @@ def panel_lq(slab, off):
             f"panel_lq: need 1 <= rows <= cols - off, got rows={rows}, "
             f"cols={cols}, off={off}"
         )
-    fn = (
-        _library().panel_lq_f64
-        if slab.dtype == torch.float64
-        else _library().panel_lq_f32
-    )
     lv = torch.empty_like(slab)
     tT = torch.empty((rows, rows), dtype=slab.dtype, device=slab.device)
     scratch = torch.empty((rows,), dtype=slab.dtype, device=slab.device)
-    err = fn(
+    cuda_build.launch(
+        "panel_lq", _PANEL_LQ_ARGS, slab,
         slab.data_ptr(), lv.data_ptr(), tT.data_ptr(), scratch.data_ptr(),
-        rows, cols, off, slab.device.index,
-        torch.cuda.current_stream(slab.device).cuda_stream,
+        rows, cols, off,
     )
-    if err != 0:
-        raise RuntimeError(f"panel_lq: kernel launch failed (cudaError {err})")
     panel_lq.launches += 1
     return lv, tT
 
@@ -286,4 +232,150 @@ def make_householder_lq_factorization(*, block: int = 128,
         return L3, _gain_solve_lower(L1, L21), L1
 
     factorization.blocks = blocks
+    return factorization
+
+
+# ---------------------------------------------------------------------------
+# R form: leaf kernel, tall blocked QR and its step hook
+# ---------------------------------------------------------------------------
+
+
+def leaf_qr_reference(slab):
+    """Plain PyTorch version of the leaf kernel: unblocked Householder QR.
+
+    ``slab`` (rows, leaf), rows >= leaf, the diagonal of column k at row k.
+    Returns ``(VR (rows, leaf), T (leaf, leaf))`` with the TPU kernel's
+    contract: R in the upper triangle of the top square, reflector tails
+    below it (unit diagonal implicit), and T upper triangular with tau on
+    the diagonal for ``Q = H_0 H_1 ... = I - V T V^T``.
+    """
+    rows, leaf = slab.shape
+    vr = slab.clone()
+    t = slab.new_zeros((leaf, leaf))
+    for k in range(leaf):
+        x = vr[:, k].clone()
+        beta, inv_denom, tau = _reflector_scalars(x[k], x[k + 1:])
+        v = torch.zeros_like(x)
+        v[k] = 1.0
+        v[k + 1:] = x[k + 1:] * inv_denom
+        s = v @ vr  # columns < k: z = V_{<k}^T v_k; columns > k: update weights
+        vr[:, k + 1:] -= v[:, None] * (tau * s[k + 1:])
+        vr[k, k] = beta
+        vr[k + 1:, k] = v[k + 1:]
+        t[:k, k] = -tau * (t[:k, :k] @ s[:k])
+        t[k, k] = tau
+    return vr, t
+
+
+def leaf_qr(slab):
+    """Householder QR of one tall leaf slab (see :func:`leaf_qr_reference`).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    ``csrc/leaf_qr.cu`` on the current stream (no synchronization) and add
+    one to ``leaf_qr.launches``; the kernel takes 1 <= leaf <= 32 columns
+    and rows >= leaf, and anything else raises.
+    """
+    if slab.device.type == "cpu":
+        return leaf_qr_reference(slab)
+    cuda_build.check_input("leaf_qr", slab)
+    rows, cols = slab.shape
+    if not 1 <= cols <= min(rows, LEAF_QR_MAX_COLS):
+        raise ValueError(
+            f"leaf_qr: need 1 <= cols <= min(rows, {LEAF_QR_MAX_COLS}), got "
+            f"rows={rows}, cols={cols}"
+        )
+    vr = torch.empty_like(slab)
+    t = torch.empty((cols, cols), dtype=slab.dtype, device=slab.device)
+    cuda_build.launch(
+        "leaf_qr", _LEAF_QR_ARGS, slab,
+        slab.data_ptr(), vr.data_ptr(), t.data_ptr(), rows, cols,
+    )
+    leaf_qr.launches += 1
+    return vr, t
+
+
+leaf_qr.launches = 0
+
+
+def _apply_wy_transpose(V, T, A):
+    """``Q^T A = A - V T^T (V^T A)`` for ``Q = I - V T V^T``."""
+    return A - V @ (T.T @ (V.T @ A))
+
+
+def blocked_qr_r(A, *, leaf: int = 32, block: int = 128):
+    """Upper-triangular R of a Householder QR of tall ``A`` (M >= N), shape
+    (N, N), with ``R^T R = A^T A``.
+
+    One :func:`leaf_qr` call per ``leaf`` columns (``ceil(N / block)`` blocks
+    of ``ceil(block / leaf)`` leaves; the last leaf of the last block may be
+    narrower). Within a block each leaf's reflectors update the block's
+    later columns; the leaves are then merged into one compact WY
+    ``[[T1, -T1 V1^T V2 T2], [0, T2]]`` and the columns right of the block
+    take one trailing update. The reflector convention (``beta =
+    -sign(alpha) ||x||``) is the JAX package's, so R agrees with
+    :func:`pnmol_tpu.ops.qr_householder.blocked_qr_r` entry by entry where
+    the columns are independent.
+    """
+    M, N = A.shape
+    if M < N:
+        raise ValueError(f"blocked_qr_r requires M >= N, got {tuple(A.shape)}")
+    block = max(block, leaf)
+    R = A.new_zeros((N, N))
+    work = A
+    done = 0
+    while done < N:
+        width = min(block, N - done)
+        rows_w = work.shape[0]
+        blk = work[:, :width].clone()
+        V = A.new_zeros((rows_w, width))
+        T = None
+        for jl in range(0, width, leaf):
+            lw = min(leaf, width - jl)
+            vr, t = leaf_qr(blk[jl:, jl:jl + lw].contiguous())
+            blk[jl:, jl:jl + lw] = vr
+            v = _reflectors(vr.T).T  # reflector columns, unit diagonal
+            if jl + lw < width:
+                blk[jl:, jl + lw:] = _apply_wy_transpose(v, t, blk[jl:, jl + lw:])
+            V[jl:, jl:jl + lw] = v
+            if T is None:
+                T = t
+            else:  # merge: T12 = -T1 (V1^T V2) T2
+                t12 = -(T @ (V[:, :jl].T @ V[:, jl:jl + lw])) @ t
+                T = torch.cat(
+                    (torch.cat((T, t12), dim=1),
+                     torch.cat((t.new_zeros((lw, jl)), t), dim=1)),
+                    dim=0,
+                )
+        R[done:done + width, done:done + width] = torch.triu(blk[:width])
+        trail = work[:, width:]
+        if trail.shape[1]:
+            trail = _apply_wy_transpose(V, T, trail)
+            R[done:done + width, done + width:] = trail[:width]
+            work = trail[width:]
+        done += width
+    return R
+
+
+def make_householder_factorization(*, leaf: int = 32, block: int = 128):
+    """A ``factorization=`` hook for the white-noise step: the tall
+    pre-array ``[[HACl^T, ACl^T], [HQl^T, Ql^T], [E^T, 0]]`` of shape
+    ``(2D + m, m + D)`` factorized by :func:`blocked_qr_r`.
+
+    The legacy gain contract of the JAX hook
+    (:func:`pnmol_tpu.ops.qr_householder.make_householder_factorization`):
+    ``(HACl, ACl, HQl, Ql, R) -> (posterior_factor, gain,
+    innovation_factor)`` = ``(R3^T, (R1^{-1} R2)^T, R1^T)``. It has no
+    ``.blocks``, so the step updates the mean with the explicit gain.
+    """
+
+    def factorization(HACl, ACl, HQl, Ql, meascov_sqrtm):
+        m, D = HACl.shape
+        top = torch.cat((HACl.T, ACl.T), dim=1)
+        mid = torch.cat((HQl.T, Ql.T), dim=1)
+        bottom = torch.cat((meascov_sqrtm.T, HACl.new_zeros((m, D))), dim=1)
+        R = blocked_qr_r(torch.cat((top, mid, bottom), dim=0), leaf=leaf, block=block)
+        R1, R2, R3 = R[:m, :m], R[:m, m:], R[m:, m:]
+        gain = torch.linalg.solve_triangular(R1, R2, upper=True).T
+        return R3.T, gain, R1.T
+
     return factorization

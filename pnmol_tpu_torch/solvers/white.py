@@ -4,11 +4,13 @@ Counterpart of :mod:`pnmol_tpu.solvers.white` on the main path: the
 discretization error enters as measurement noise, the prior is the
 Gram-Cholesky IWP, the initialization is the closed-form y0 update followed
 by one sqrt update on the PDE measurement, and each step runs ONE fused
-pre-array factorization, either ``torch.linalg.qr`` (``factorization=None``)
-or the Householder LQ with the CUDA panel kernel
-(``factorization="householder"``). The state lives in the point-major
-Nordsieck layout of :mod:`pnmol_tpu_torch.ops.iwp`, so the measurement
-matrix ``H`` is never materialized.
+pre-array factorization: ``torch.linalg.qr`` (``factorization=None``), the
+Householder LQ with the CUDA panel kernel (``factorization="householder"``),
+or a hook such as the R-form Householder QR with the CUDA leaf kernel
+(:func:`pnmol_tpu_torch.ops.qr_householder.make_householder_factorization`).
+The state lives in the point-major Nordsieck layout of
+:mod:`pnmol_tpu_torch.ops.iwp`, so the measurement matrix ``H`` is never
+materialized.
 """
 
 from typing import NamedTuple
@@ -52,8 +54,9 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
     Returns ``(mean (n, d), cov_sqrtm (D, D), error_estimate (d,),
     reference (d,), diffusion_sq ())``. ``factorization`` is ``None`` (the
-    fused pre-array QR) or a hook with a ``.blocks`` attribute returning
-    ``(posterior factor, L21, Sl)``.
+    fused pre-array QR), a hook with a ``.blocks`` attribute returning
+    ``(posterior factor, L21, Sl)``, or a hook without one returning
+    ``(posterior factor, gain, Sl)`` (the legacy gain contract).
     """
     n = num_derivatives + 1
     d = mean.shape[1]
@@ -82,19 +85,24 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     error = dt * (torch.sqrt(torch.diagonal(S)) * torch.sqrt(sigma_squared))[:d]
 
     # [Predict + update covariance]: raw factor blocks (Cl_new, L21, Sl) with
-    # S_xz = L21 Sl^T; the gain L21 Sl^{-1} is never formed
+    # S_xz = L21 Sl^T, so the gain L21 Sl^{-1} is never formed; a hook
+    # without .blocks returns the gain K instead of L21
     ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
     HACl = apply_H(ACl)
+    K = None
     if factorization is None:
         Cl_new, L21, Sl = sqrt.fused_predict_update_blocks(HACl, ACl, HQl, cache.Ql, E_bc)
-    else:
+    elif hasattr(factorization, "blocks"):
         Cl_new, L21, Sl = factorization.blocks(HACl, ACl, HQl, cache.Ql, E_bc)
+    else:
+        Cl_new, K, Sl = factorization(HACl, ACl, HQl, cache.Ql, E_bc)
 
     # [Calibrate + mean update] whitened residual via the LOWER solve
     # Sl w = z (z^T S^{-1} z with S = Sl Sl^T, invariant to row signs)
     residual_white = torch.linalg.solve_triangular(Sl, z[:, None], upper=False)[:, 0]
     diffusion_sq = residual_white @ residual_white / m_dim
-    m_new_flat = iwp.mean_to_flat(Mp) - L21 @ residual_white
+    correction = L21 @ residual_white if K is None else K @ z
+    m_new_flat = iwp.mean_to_flat(Mp) - correction
 
     # [Un-precondition]
     M_new = iwp.flat_to_mean(m_new_flat, n) * p[:, None]
@@ -167,9 +175,12 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
 
     ``factorization``: ``None`` (fused pre-array ``torch.linalg.qr``),
     ``"householder"`` (the blocked Householder LQ with the CUDA panel
-    kernel, for the step AND the initialization update), or a hook made by
-    :func:`pnmol_tpu_torch.ops.qr_householder.make_householder_lq_factorization`.
-    The other options of the JAX solver raise ``NotImplementedError``.
+    kernel, for the step AND the initialization update), or a step hook
+    (``make_householder_lq_factorization``, or the R-form
+    ``make_householder_factorization`` with the CUDA leaf kernel, from
+    :mod:`pnmol_tpu_torch.ops.qr_householder`); a hook leaves the
+    initialization on the plain update, as in the JAX solver. The other
+    options of the JAX solver raise ``NotImplementedError``.
     """
 
     def __init__(self, *args, meascov_dt_scaled=False, factorization=None,
@@ -187,16 +198,6 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
         if steady_state or isinstance(steady_state, dict):
             raise NotImplementedError(
                 "steady-state mode is not ported yet (ROADMAP queue 1, item 15)"
-            )
-        if not (
-            factorization is None
-            or factorization == "householder"
-            or hasattr(factorization, "blocks")
-        ):
-            raise NotImplementedError(
-                "factorization hooks without a .blocks attribute (the legacy "
-                "gain contract of the distributed tier) are not ported yet "
-                "(ROADMAP queue 1, item 17)"
             )
         self._factorization_spec = factorization
         self._factorization_d = None

@@ -1,4 +1,5 @@
-"""The CUDA panel kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels (panel LQ, radial Gram, leaf QR) on the card, against
+their plain PyTorch versions.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed (skip the JAX-pinning conftest there)::
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import pnmol_tpu_torch as pt
+from pnmol_tpu_torch.ops import gram as tgram
 from pnmol_tpu_torch.ops import qr_householder as tq
 
 pytestmark = pytest.mark.cuda
@@ -64,3 +67,102 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tq.panel_lq(x.T, 0)  # not contiguous
     with pytest.raises(ValueError):
         tq.panel_lq(x, 5)  # rows > cols - off
+
+
+# --- radial Gram (K3) -------------------------------------------------------
+
+GRAM_SHAPES = [((512, 1), (512, 1)), ((1000, 2), (777, 2)), ((37, 3), (53, 3))]
+
+
+@pytest.mark.parametrize("shapes", GRAM_SHAPES, ids=["512x1", "ragged-1000x777x2", "dim3"])
+@pytest.mark.parametrize("phi_name", ["squared_exponential", "matern52"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gram_kernel_matches_the_plain_version(cuda, shapes, phi_name, dtype):
+    rng = np.random.default_rng(sum(shapes[0]) + sum(shapes[1]))
+    x, y = (torch.tensor(rng.uniform(size=s), dtype=dtype, device=cuda) for s in shapes)
+    before = tgram.gram_radial.launches
+    got = tgram.gram_radial(x, y, 5.0, 1.3, phi_name=phi_name)
+    torch.cuda.synchronize()
+    assert tgram.gram_radial.launches == before + 1
+    want = tgram.gram_radial_reference(x, y, 5.0, 1.3, phi_name=phi_name)
+    # the same distance-trick formula, d2 rounded as in the plain version:
+    # exp/sqrt rounding only, relative to output_scale^2
+    tol = (1e-12 if dtype == torch.float64 else 1e-5) * 1.3**2
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_radial_kernel_dispatches_large_cuda_grams_to_the_kernel(cuda):
+    X = torch.linspace(0.0, 1.0, 512, dtype=torch.float64, device=cuda)[:, None]
+    k = pt.kernels.SquareExponential(input_scale=5.0)
+    before = tgram.gram_radial.launches
+    gram = k(X, X.T)  # 512^2 elements: the kernel
+    assert tgram.gram_radial.launches == before + 1
+    k(X[:511], X.T)  # below the threshold: the plain version
+    assert tgram.gram_radial.launches == before + 1
+    torch.testing.assert_close(
+        gram, tgram.gram_radial_reference(X, X, 5.0, 1.0, phi_name="squared_exponential"),
+        rtol=0, atol=1e-12)
+
+
+def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((8, 2), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tgram.gram_radial(x.to(torch.float16), x.to(torch.float16), 1.0, 1.0, phi_name="matern52")
+    with pytest.raises(ValueError):
+        tgram.gram_radial(x.T, x.T, 1.0, 1.0, phi_name="matern52")  # not contiguous
+    with pytest.raises(ValueError):
+        tgram.gram_radial(x, x[:, :1].contiguous(), 1.0, 1.0, phi_name="matern52")
+    with pytest.raises(ValueError):
+        tgram.gram_radial(x, x, 1.0, 1.0, phi_name="polynomial")
+
+
+# --- leaf QR (K4) -----------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "rows, cols, zero_cols",
+    [(3586, 32, ()), (2050, 32, ()), (40, 32, ()), (2050, 32, (3, 17)), (300, 2, ()),
+     (32, 32, ())],
+    ids=["step-top", "step-bottom", "short", "zero-columns", "narrow-last-leaf", "square"],
+)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_leaf_kernel_matches_the_plain_version(cuda, rows, cols, zero_cols, dtype):
+    rng = np.random.default_rng(rows + cols + len(zero_cols))
+    slab = rng.standard_normal((rows, cols))
+    slab[:, list(zero_cols)] = 0.0
+    x = torch.tensor(slab, dtype=dtype, device=cuda)
+    before = tq.leaf_qr.launches
+    vr, t = tq.leaf_qr(x)
+    torch.cuda.synchronize()
+    assert tq.leaf_qr.launches == before + 1
+    vr_ref, t_ref = tq.leaf_qr_reference(x)
+    # rounding of one Householder QR: ~1e-15 (f64) / ~1e-6 (f32) of R's scale
+    scale = vr_ref.abs().max().item()
+    tol = (1e-12 if dtype == torch.float64 else 1e-4) * scale
+    assert (vr - vr_ref).abs().max().item() <= tol
+    assert (t - t_ref).abs().max().item() <= tol
+    for k in zero_cols:
+        assert t[k, k].item() == 0.0  # the identity reflector
+
+
+def test_blocked_qr_r_of_the_step_pre_array_matches_the_gram(cuda):
+    A = torch.tensor(np.random.default_rng(2).standard_normal((3586, 2050)), device=cuda)
+    before = tq.leaf_qr.launches
+    R = tq.blocked_qr_r(A)
+    assert tq.leaf_qr.launches == before + 65  # ceil(2050 / 32) leaves
+    G = A.T @ A
+    assert ((R.T @ R - G).abs().max() / G.abs().max()).item() <= 1e-12
+    assert torch.all(torch.tril(R, -1) == 0).item()
+
+
+def test_leaf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((40, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tq.leaf_qr(x.to(torch.float16))
+    with pytest.raises(ValueError):
+        tq.leaf_qr(x.T)  # not contiguous
+    with pytest.raises(ValueError):
+        tq.leaf_qr(torch.zeros((40, 33), dtype=torch.float64, device=cuda))  # > 32 columns
+    with pytest.raises(ValueError):
+        tq.leaf_qr(torch.zeros((4, 8), dtype=torch.float64, device=cuda))  # rows < cols

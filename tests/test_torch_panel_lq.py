@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from pnmol_tpu.ops import qr_householder as qh
+from pnmol_tpu_torch.ops import cuda_build
 from pnmol_tpu_torch.ops import qr_householder as tq
 from pnmol_tpu_torch.ops import sqrt as tsqrt
 
@@ -70,10 +71,10 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     """No fallback: without nvcc the kernel build raises."""
     import torch.utils.cpp_extension as cpp_extension
 
-    monkeypatch.setattr(tq, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tq.build_panel_lq()
+        cuda_build.build("panel_lq")
 
 
 def test_wrapper_rejects_other_devices():

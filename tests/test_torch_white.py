@@ -179,17 +179,35 @@ CONSTANT = pt.odetools.step.Constant(0.1)
          "item 12"),
         (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, meascov_dt_scaled=True),
          "item 10"),
-        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, factorization=lambda *a: a),
-         "item 17"),
         (lambda: pt.white.LinearWhiteNoiseEK1(), "item 9"),
         (lambda: pt.odetools.step.Adaptive(), "item 9"),
         (lambda: pt.white.SemiLinearWhiteNoiseEK1(steprule=CONSTANT), "item 10"),
         (lambda: pt.white.SemiLinearWhiteNoiseEK0(steprule=CONSTANT), "item 10"),
         (lambda: pt.latent.LinearLatentForceEK1(steprule=CONSTANT), "item 11"),
     ],
-    ids=["steady", "steady-dict", "two-qr", "band", "dt-scaled", "legacy-hook",
-         "default-adaptive", "adaptive", "semilinear-ek1", "semilinear-ek0", "latent"],
+    ids=["steady", "steady-dict", "two-qr", "band", "dt-scaled", "default-adaptive", "adaptive", "semilinear-ek1", "semilinear-ek0", "latent"],
 )
 def test_out_of_slice_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
+
+
+def test_hook_without_blocks_is_accepted_and_solves():
+    """A hook with the legacy gain contract (no ``.blocks``): the step
+    updates the mean with the explicit gain ``K z``. Here the gain form of
+    the plain pipeline, so the solve equals the default one."""
+    calls = []
+
+    def gain_hook(HACl, ACl, HQl, Ql, E):
+        calls.append(HACl.shape)
+        C, L21, Sl = pt.ops.sqrt.fused_predict_update_blocks(HACl, ACl, HQl, Ql, E)
+        return C, torch.linalg.solve_triangular(Sl.T, L21.T, upper=True).T, Sl
+
+    heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=CPU)
+    sols = [
+        pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, factorization=f).solve(heat)
+        for f in (gain_hook, None)
+    ]
+    assert calls == [(8, 18)] * 5  # the five steps; the initialization stays plain
+    torch.testing.assert_close(sols[0].mean, sols[1].mean, rtol=0, atol=1e-13)
+    torch.testing.assert_close(sols[0].cov_sqrtm, sols[1].cov_sqrtm, rtol=0, atol=1e-13)
