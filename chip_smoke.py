@@ -8,11 +8,13 @@ Phases (any failure exits non-zero; nothing is swallowed):
 2. build: compiles the three kernels of ``pnmol_tpu_torch/csrc`` (one
    ``nvcc`` each, all started together), printing each build's time;
 3. kernel: the CUDA panel kernel against its plain PyTorch version on the
-   card (f64, random slabs at the solver's shapes), a full blocked LQ of the
-   2050 x 3586 step pre-array, and both versions' times;
-   then the radial Gram kernel and the leaf QR kernel against their plain
-   versions (f64 and f32), a full blocked QR of the 3586 x 2050 R-form
-   pre-array, and the kernels', plain versions' and library's times;
+   card (f64, random slabs at the solvers' shapes, up to the latent step's
+   128 x 6658 panel and its ragged 2-row last panel), full blocked LQs of the
+   2050 x 3586 white and the 3586 x 6658 latent step pre-arrays, and both
+   versions' times at 128 x 3586 and 128 x 6658; then the radial Gram kernel
+   and the leaf QR kernel against their plain versions (f64 and f32), a full
+   blocked QR of the 3586 x 2050 R-form pre-array, and the kernels', plain
+   versions' and library's times;
 4. golden: the dx = 0.2 heat solve against
    ``tests/golden/heat_trajectories.npz``, through the panel kernel and
    through the R-form hook (leaf kernel);
@@ -23,11 +25,29 @@ Phases (any failure exits non-zero; nothing is swallowed):
    from global collocation (one radial-Gram kernel launch in the setup),
    initialize and 20 steps on the panel-kernel path and on the plain path;
 7. R form: the phase-5 problem through the R-form Householder hook (leaf
-   kernel), initialize and 20 steps, against phase 5's plain run.
+   kernel), initialize and 20 steps, against phase 5's plain run;
+8. latent golden: the dx = 0.2 heat solve through ``LinearLatentForceEK1``
+   against the golden's ``latent_mean``/``latent_diffusion``, through the
+   panel kernel and through the R-form hook;
+9. latent at full width: the phase-5 problem through
+   ``LinearLatentForceEK1``, initialize and 20 steps on the panel-kernel
+   path (601 launches: the 2562-row init LQ in 21 panels, each 3586 x 6658
+   step pre-array in 29) and on the plain path, compared;
+10. semilinear at full width: Lotka-Volterra on 256 points (d = 512, four
+    Neumann rows) through ``SemiLinearWhiteNoiseEK1`` with a ``duplicate``
+    prior, initialize and 20 steps on the panel-kernel path (353 launches)
+    and on the plain path, compared;
+11. adaptive: the phase-5 problem with ``Adaptive()`` defaults to tmax =
+    0.1, on the panel-kernel path (13 + 17 x attempts launches) and on the
+    plain path: equal step and attempt counts, landing on tmax, compared;
+12. semilinear latent: Lotka-Volterra at dx = 0.1 through
+    ``SemiLinearLatentForceEK1`` on the panel-kernel path and the plain
+    path, compared.
 
-Every path's launch counts are set to 0 just before it and read just after.
-The last lines are the kernels' JSON record, the card, and
-``{"ok": true, "device": {...}}``. Imports neither JAX nor pnmol_tpu.
+Every path's launch counts are set to 0 just before it and read just after;
+the kernels' ``launches`` are the sums over the paths. The last lines are
+the kernels' JSON record, the card, and ``{"ok": true, "device": {...}}``.
+Imports neither JAX nor pnmol_tpu.
 """
 import concurrent.futures
 import json
@@ -49,6 +69,16 @@ EXPECTED_LAUNCHES = 13 + 17 * NUM_STEPS
 # the plain update; each step's pre-array is 3586 x 2050, swept in 32-column
 # leaves (16 blocks of 4 leaves, then one leaf of the last 2 columns)
 EXPECTED_LEAF_LAUNCHES = -(-2050 // 32) * NUM_STEPS
+# the latent solver at N = 512 (m = 514 measurement rows): the init LQ has
+# m + 4N = 2562 rows (21 panels), each step's m + 6N = 3586 (29 panels)
+EXPECTED_LATENT_LAUNCHES = 21 + 29 * NUM_STEPS
+# Lotka-Volterra on 256 points: d = 512, m = 516; init 1540 rows (13
+# panels), steps 2052 (17)
+LV_POINTS = 256
+EXPECTED_LV_LAUNCHES = 13 + 17 * NUM_STEPS
+# the adaptive run: 20 accepted steps of 41 attempts on the CPU (JAX and the
+# port alike); every attempt factorizes the white step's pre-array
+ADAPTIVE_TMAX = 0.1
 KERNELS = ("panel_lq", "gram_radial", "leaf_qr")
 
 
@@ -91,6 +121,9 @@ def phase_kernel(tq, dev):
         ("rows 128, cols 3586, off 40", 128, 3586, 40, ()),
         ("rows 32, cols 3586, off 0 (leaf form)", 32, 3586, 0, ()),
         ("rows 128, cols 1538, rows 2.. zero (ragged)", 128, 1538, 0, range(2, 128)),
+        ("rows 128, cols 6658, off 0 (latent step panel)", 128, 6658, 0, ()),
+        ("rows 2, cols 6658, off 0 (2-row panel)", 2, 6658, 0, ()),
+        ("rows 2, cols 3074, off 0 (latent last panel)", 2, 3074, 0, ()),
     ]
     worst = 0.0
     for name, rows, cols, off, zero_rows in cases:
@@ -109,13 +142,17 @@ def phase_kernel(tq, dev):
         check(err_lv <= tol and err_t <= tol, f"{name}: kernel disagrees with plain version")
         worst = max(worst, err_lv, err_t)
 
-    W = torch.tensor(rng.standard_normal((2050, 3586)), device=dev)
-    L = tq.blocked_lq_l(W)
-    G = W @ W.T
-    rel = ((L @ L.T - G).abs().max() / G.abs().max()).item()
-    print(f"blocked_lq_l 2050 x 3586: max|L L^T - W W^T| / max|W W^T| = {rel:.3e}", flush=True)
-    check(rel <= 1e-12, "blocked LQ Gram mismatch")
-    check(torch.all(torch.triu(L, 1) == 0).item(), "blocked LQ factor not lower triangular")
+    # the white step's pre-array, and the latent step's (29 panels, the last
+    # of 2 rows)
+    for rows, cols, tol in ((2050, 3586, 1e-12), (3586, 6658, 1e-13)):
+        W = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+        L = tq.blocked_lq_l(W)
+        G = W @ W.T
+        rel = ((L @ L.T - G).abs().max() / G.abs().max()).item()
+        print(f"blocked_lq_l {rows} x {cols}: max|L L^T - W W^T| / max|W W^T| = {rel:.3e}"
+              f" (tol {tol:.0e})", flush=True)
+        check(rel <= tol, f"blocked LQ {rows} x {cols}: Gram mismatch")
+        check(torch.all(torch.triu(L, 1) == 0).item(), "blocked LQ factor not lower triangular")
 
     # times at the step's panel shape, in turns: plain, kernel, kernel, plain
     x = torch.tensor(rng.standard_normal((128, 3586)), device=dev)
@@ -124,6 +161,12 @@ def phase_kernel(tq, dev):
     plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
     ms, plain_ms = sum(kernel) / 2, sum(plain) / 2
     print(f"panel 128 x 3586 f64: kernel {kernel} ms, plain {plain} ms", flush=True)
+    wide = torch.tensor(rng.standard_normal((128, 6658)), device=dev)
+    wide_plain = [cuda_ms(lambda: tq.panel_lq_reference(wide, 0), 3)]
+    wide_kernel = [cuda_ms(lambda: tq.panel_lq(wide, 0), 20) for _ in range(2)]
+    wide_plain.append(cuda_ms(lambda: tq.panel_lq_reference(wide, 0), 3))
+    print(f"panel 128 x 6658 f64 (latent step): kernel {wide_kernel} ms, plain {wide_plain} ms",
+          flush=True)
     leaf = torch.tensor(rng.standard_normal((32, 3586)), device=dev)
     print(f"panel 32 x 3586 f64 (leaf form): kernel "
           f"{cuda_ms(lambda: tq.panel_lq(leaf, 0), 20)} ms, plain "
@@ -216,45 +259,79 @@ def phase_leaf(tq, dev):
     return worst, sum(k) / 2, sum(p) / 2
 
 
-def phase_golden(pt, dev, wrapper, factorization, launches, label):
+class Launches:
+    """Per-path kernel launch counts: set to 0 just before a path, read just
+    after it, and summed over the paths for the kernels' record."""
+
+    def __init__(self, wrappers):
+        self.wrappers = wrappers
+        self.totals = dict.fromkeys(wrappers, 0)
+
+    def reset(self):
+        for wrapper in self.wrappers.values():
+            wrapper.launches = 0
+
+    def read(self, label, expected, *, add=True):
+        """Check the counts since the last reset against ``expected`` (the
+        kernels it leaves out must be 0)."""
+        counts = {name: wrapper.launches for name, wrapper in self.wrappers.items()}
+        expected = {name: expected.get(name, 0) for name in self.wrappers}
+        print(f"{label}: launches {counts} (expected {expected})", flush=True)
+        check(counts == expected, f"{label}: kernel launch counts")
+        if add:
+            for name, count in counts.items():
+                self.totals[name] += count
+        return counts
+
+
+def prior(pt, species=1):
+    kernel = pt.kernels.Matern52() + pt.kernels.WhiteNoise()
+    return kernel if species == 1 else pt.duplicate(kernel, species)
+
+
+def phase_golden(pt, dev, launches, solver_cls, prefix, factorization, expected, label):
+    """The dx = 0.2 heat solve against the golden ``{prefix}_*`` arrays."""
     with np.load(GOLDEN) as data:
         golden = dict(data)
     heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=dev)
-    solver = pt.white.LinearWhiteNoiseEK1(
-        steprule=pt.odetools.step.Constant(0.1),
-        spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise(),
-        factorization=factorization,
-    )
-    before = wrapper.launches
+    solver = solver_cls(steprule=pt.odetools.step.Constant(0.1), spatial_kernel=prior(pt),
+                        factorization=factorization)
+    launches.reset()
     sol = solver.solve(heat)
     torch.cuda.synchronize()
-    check(wrapper.launches - before == launches, f"golden run did not go through {label}")
+    launches.read(f"{prefix} golden through {label}", expected)
     mean = sol.mean.cpu().numpy()
     diffusion = float(sol.diffusion_squared_calibrated)
-    std = torch.sqrt(torch.einsum("ij,ij->i", sol.cov_sqrtm[-1], sol.cov_sqrtm[-1])).cpu().numpy()
     # thresholds of tests/test_golden.py
-    ok_mean = np.allclose(mean, golden["white_mean"], rtol=1e-10, atol=1e-13)
-    ok_diff = np.allclose(diffusion, golden["white_diffusion"], rtol=1e-10)
-    ok_std = np.allclose(std, golden["white_final_std"], rtol=1e-8, atol=1e-12)
-    print(f"golden dx=0.2 through {label}: max|dmean| "
-          f"{np.abs(mean - golden['white_mean']).max():.3e}, diffusion rel "
-          f"{abs(diffusion / float(golden['white_diffusion']) - 1):.3e}, max|dstd| "
-          f"{np.abs(std - golden['white_final_std']).max():.3e}", flush=True)
-    check(ok_mean and ok_diff and ok_std, "golden trajectory mismatch")
+    ok = (np.allclose(mean, golden[f"{prefix}_mean"], rtol=1e-10, atol=1e-13)
+          and np.allclose(diffusion, golden[f"{prefix}_diffusion"], rtol=1e-10))
+    line = (f"{prefix} golden dx=0.2 through {label}: max|dmean| "
+            f"{np.abs(mean - golden[f'{prefix}_mean']).max():.3e}, diffusion rel "
+            f"{abs(diffusion / float(golden[f'{prefix}_diffusion']) - 1):.3e}")
+    if f"{prefix}_final_std" in golden:
+        std = torch.sqrt(torch.einsum("ij,ij->i", sol.cov_sqrtm[-1], sol.cov_sqrtm[-1]))
+        std = std.cpu().numpy()
+        ok = ok and np.allclose(std, golden[f"{prefix}_final_std"], rtol=1e-8, atol=1e-12)
+        line += f", max|dstd| {np.abs(std - golden[f'{prefix}_final_std']).max():.3e}"
+    print(line, flush=True)
+    check(ok, f"{prefix} golden trajectory mismatch")
 
 
-def run_full_width(pt, heat, factorization):
-    """initialize + NUM_STEPS steps through the user-facing generator."""
-    solver = pt.white.LinearWhiteNoiseEK1(
-        steprule=pt.odetools.step.Constant(DT),
-        num_derivatives=NU,
-        spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise(),
-        factorization=factorization,
-    )
+def heat_solver(pt, factorization, cls=None, steprule=None):
+    """The bench configuration's solver: nu = 2, prior Matern52 + WhiteNoise,
+    Constant(DT) unless another rule is given (None: the Adaptive default)."""
+    cls = cls or pt.white.LinearWhiteNoiseEK1
+    return cls(steprule=steprule, num_derivatives=NU, spatial_kernel=prior(pt),
+               factorization=factorization)
+
+
+def run_solver(solver, pde, num_steps=NUM_STEPS):
+    """initialize + steps through the user-facing generator, synchronized
+    after each; ``num_steps=None`` takes whatever an adaptive rule takes."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     diffusions = []
-    for state, info in solver.solution_generator(heat):
+    for state, info in solver.solution_generator(pde):
         torch.cuda.synchronize()
         if info["num_steps"] == 0:
             t_init = time.perf_counter()
@@ -264,89 +341,92 @@ def run_full_width(pt, heat, factorization):
         if info["num_steps"]:
             diffusions.append(state.diffusion_squared_local)
     t_end = time.perf_counter()
-    check(info["num_steps"] == NUM_STEPS, f"ran {info['num_steps']} steps")
+    steps = info["num_steps"]
+    if num_steps is not None:
+        check(steps == num_steps, f"ran {steps} steps, not {num_steps}")
     return dict(
         state=state,
+        info=dict(info),
         y0_mean=y0_mean,
         diffusion=torch.stack(diffusions).mean(),
         init_s=t_init - t0,
-        steps_per_s=NUM_STEPS / (t_end - t_init),
-        steady_steps_per_s=(NUM_STEPS - 1) / (t_end - t_first),
+        steps_per_s=steps / (t_end - t_init),
+        steady_steps_per_s=(steps - 1) / (t_end - t_first),
     )
 
 
-def report_run(name, run, card_line):
-    """No NaN, heat decays; prints init seconds and steps/s."""
+def report_run(name, run, card_line, d=None, decays=True):
+    """No NaN (and, for heat, decay of the solution ``mean[0, :d]``); prints
+    init seconds and steps/s."""
     mean, cov = run["state"].y.mean, run["state"].y.cov_sqrtm
     check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()
                and torch.isfinite(run["diffusion"])), f"{name}: NaN or inf")
-    check(mean[0].abs().max() < run["y0_mean"][0].abs().max(), f"{name}: heat did not decay")
-    print(f"N={N_POINTS} {name}: init {run['init_s']:.3f} s, {run['steps_per_s']:.2f} steps/s "
-          f"over {NUM_STEPS} steps ({run['steady_steps_per_s']:.2f} after the first), "
-          f"max|u| {run['y0_mean'][0].abs().max().item():.6f} -> "
-          f"{mean[0].abs().max().item():.6f} [{card_line}]", flush=True)
+    u0, u = run["y0_mean"][0, :d].abs().max(), mean[0, :d].abs().max()
+    if decays:
+        check(u < u0, f"{name}: heat did not decay")
+    info = run["info"]
+    print(f"{name}: init {run['init_s']:.3f} s, {run['steps_per_s']:.2f} steps/s over "
+          f"{info['num_steps']} steps of {info['num_attempted_steps']} attempts "
+          f"({run['steady_steps_per_s']:.2f} after the first), max|u| {u0.item():.6f} -> "
+          f"{u.item():.6f} [{card_line}]", flush=True)
 
 
-def compare_runs(label, run, plain):
-    """Mean and covariance Gram <= 1e-8 relative, diffusion <= 1e-6."""
+def compare_runs(label, run, plain, d=None):
+    """Mean and covariance Gram <= 1e-8 relative, diffusion <= 1e-6. For the
+    latent solvers (``d`` = the state half) the 1e-8 holds on the solution
+    half of the mean, and the whole stacked mean is held to 1e-6: the
+    highest derivative of the latent force is fixed only through noise-free
+    measurements, and two f64 Householder QRs of the same pre-arrays
+    (LAPACK and XLA, on a CPU) already give stacked means 8.4e-8 apart
+    after the 20 N = 512 latent steps, the state halves 8.5e-9."""
     m1, m2 = run["state"].y.mean, plain["state"].y.mean
     C1, C2 = run["state"].y.cov_sqrtm, plain["state"].y.cov_sqrtm
     G1, G2 = C1 @ C1.T, C2 @ C2.T
-    mean_rel = ((m1 - m2).abs().max() / m2.abs().max()).item()
-    gram_rel = ((G1 - G2).abs().max() / G2.abs().max()).item()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    mean_rel, stacked_rel = rel(m1[:, :d], m2[:, :d]), rel(m1, m2)
+    gram_rel = rel(G1, G2)
     diff_rel = abs(run["diffusion"].item() / plain["diffusion"].item() - 1)
-    print(f"{label} after {NUM_STEPS} steps: mean rel {mean_rel:.3e}, "
+    stacked = "" if d is None else f" (stacked with the latent half {stacked_rel:.3e})"
+    print(f"{label} after {run['info']['num_steps']} steps: mean rel {mean_rel:.3e}{stacked}, "
           f"cov Gram rel {gram_rel:.3e}, diffusion rel {diff_rel:.3e}", flush=True)
-    check(mean_rel <= 1e-8 and gram_rel <= 1e-8, f"{label}: paths disagree")
+    check(mean_rel <= 1e-8 and gram_rel <= 1e-8 and stacked_rel <= 1e-6,
+          f"{label}: paths disagree")
     # looser: the diffusion whitens through the near-singular innovation
     # directions of the noise-free Dirichlet rows, which amplify rounding
     check(diff_rel <= 1e-6, f"{label}: diffusions disagree")
 
 
-def reset_counts(wrappers):
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-
-
-def read_counts(wrappers):
-    return {name: wrapper.launches for name, wrapper in wrappers.items()}
-
-
-def check_counts(label, counts, expected):
-    print(f"{label}: launches {counts} (expected {expected})", flush=True)
-    check(counts == expected, f"{label}: kernel launch counts")
-
-
-def phase_full_width(pt, dev, wrappers, card_line):
+def full_width_heat(pt, dev, tmax=NUM_STEPS * DT):
     dx = 1.0 / (N_POINTS - 1)
-    heat = pt.pde.examples.heat_1d_discretized(
-        dx=dx, tmax=NUM_STEPS * DT,
-        kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx), device=dev,
+    return pt.pde.examples.heat_1d_discretized(
+        dx=dx, tmax=tmax, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+        device=dev,
     )
-    reset_counts(wrappers)
-    hh = run_full_width(pt, heat, "householder")
-    plain = run_full_width(pt, heat, None)
-    counts = read_counts(wrappers)
-    check_counts(f"N={N_POINTS} FD path", counts,
-                 {"panel_lq": EXPECTED_LAUNCHES, "gram_radial": 0, "leaf_qr": 0})
-    report_run("householder kernel", hh, card_line)
-    report_run("plain torch.linalg.qr", plain, card_line)
+
+
+def phase_full_width(pt, dev, launches, card_line):
+    heat = full_width_heat(pt, dev)
+    launches.reset()
+    hh = run_solver(heat_solver(pt, "householder", steprule=pt.odetools.step.Constant(DT)), heat)
+    plain = run_solver(heat_solver(pt, None, steprule=pt.odetools.step.Constant(DT)), heat)
+    launches.read(f"N={N_POINTS} FD path", {"panel_lq": EXPECTED_LAUNCHES})
+    report_run(f"N={N_POINTS} householder kernel", hh, card_line)
+    report_run(f"N={N_POINTS} plain torch.linalg.qr", plain, card_line)
     compare_runs("kernel path vs plain path", hh, plain)
-    return counts["panel_lq"], heat, plain
+    return heat, plain
 
 
-def phase_collocation(pt, dev, wrappers, card_line):
+def phase_collocation(pt, dev, launches, card_line):
     """heat_1d on the 512-point mesh with L and E_sqrtm from global
     collocation (SquareExponential(input_scale=5), nuggets 1e-12 on K and
     1e-6 on E); B, R_sqrtm and y0 as the mixin sets them."""
-    dx = 1.0 / (N_POINTS - 1)
-    reset_counts(wrappers)
+    launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    heat = pt.pde.examples.heat_1d_discretized(
-        dx=dx, tmax=NUM_STEPS * DT,
-        kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx), device=dev,
-    )
+    heat = full_width_heat(pt, dev)
     D, E_sqrtm = pt.discretize.collocation_global(
         pt.diffops.laplace(), heat.mesh_spatial,
         kernel=pt.kernels.SquareExponential(input_scale=5.0),
@@ -358,29 +438,113 @@ def phase_collocation(pt, dev, wrappers, card_line):
     setup_s = time.perf_counter() - t0
     check(bool(torch.isfinite(heat.L).all() and torch.isfinite(heat.E_sqrtm).all()),
           "collocation: NaN or inf in L or E_sqrtm")
-    check_counts(f"N={N_POINTS} collocation setup ({setup_s:.3f} s)", read_counts(wrappers),
-                 {"panel_lq": 0, "gram_radial": 1, "leaf_qr": 0})
-    hh = run_full_width(pt, heat, "householder")
-    plain = run_full_width(pt, heat, None)
-    counts = read_counts(wrappers)
-    check_counts(f"N={N_POINTS} collocation path", counts,
-                 {"panel_lq": EXPECTED_LAUNCHES, "gram_radial": 1, "leaf_qr": 0})
-    report_run("collocation, householder kernel", hh, card_line)
-    report_run("collocation, plain torch.linalg.qr", plain, card_line)
+    launches.read(f"N={N_POINTS} collocation setup ({setup_s:.3f} s)", {"gram_radial": 1},
+                  add=False)
+    constant = pt.odetools.step.Constant(DT)
+    hh = run_solver(heat_solver(pt, "householder", steprule=constant), heat)
+    plain = run_solver(heat_solver(pt, None, steprule=constant), heat)
+    launches.read(f"N={N_POINTS} collocation path",
+                  {"panel_lq": EXPECTED_LAUNCHES, "gram_radial": 1})
+    report_run(f"N={N_POINTS} collocation, householder kernel", hh, card_line)
+    report_run(f"N={N_POINTS} collocation, plain torch.linalg.qr", plain, card_line)
     compare_runs("collocation: kernel path vs plain path", hh, plain)
-    return counts["gram_radial"]
 
 
-def phase_r_form(pt, tq, wrappers, heat, plain, card_line):
+def phase_r_form(pt, tq, launches, heat, plain, card_line):
     """The phase-5 problem through the R-form hook, against phase 5's plain run."""
-    reset_counts(wrappers)
-    rf = run_full_width(pt, heat, tq.make_householder_factorization())
-    counts = read_counts(wrappers)
-    check_counts(f"N={N_POINTS} R-form path", counts,
-                 {"panel_lq": 0, "gram_radial": 0, "leaf_qr": EXPECTED_LEAF_LAUNCHES})
-    report_run("R-form hook, leaf kernel", rf, card_line)
+    launches.reset()
+    rf = run_solver(heat_solver(pt, tq.make_householder_factorization(),
+                                steprule=pt.odetools.step.Constant(DT)), heat)
+    launches.read(f"N={N_POINTS} R-form path", {"leaf_qr": EXPECTED_LEAF_LAUNCHES})
+    report_run(f"N={N_POINTS} R-form hook, leaf kernel", rf, card_line)
     compare_runs("R-form path vs plain path", rf, plain)
-    return counts["leaf_qr"]
+
+
+def phase_latent(pt, launches, heat, card_line):
+    """The phase-5 problem through LinearLatentForceEK1: the stacked state
+    has 2N = 1024 points and the step's pre-array is 3586 x 6658."""
+    launches.reset()
+    runs = {
+        fac: run_solver(heat_solver(pt, fac, cls=pt.latent.LinearLatentForceEK1,
+                                    steprule=pt.odetools.step.Constant(DT)), heat)
+        for fac in ("householder", None)
+    }
+    launches.read(f"N={N_POINTS} latent path", {"panel_lq": EXPECTED_LATENT_LAUNCHES})
+    report_run(f"N={N_POINTS} latent, householder kernel", runs["householder"], card_line,
+               d=N_POINTS)
+    report_run(f"N={N_POINTS} latent, plain torch.linalg.qr", runs[None], card_line, d=N_POINTS)
+    compare_runs("latent: kernel path vs plain path", runs["householder"], runs[None],
+                 d=N_POINTS)
+
+
+def phase_lotka_volterra(pt, dev, launches, card_line):
+    """SemiLinearWhiteNoiseEK1 on Lotka-Volterra at d = 512 (256 points, two
+    species, four Neumann rows) with the dx-adapted FD kernel."""
+    dx = 1.0 / (LV_POINTS - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lv = pt.examples.lotka_volterra_1d_discretized(
+        dx=dx, tmax=NUM_STEPS * DT, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+        device=dev,
+    )
+    torch.cuda.synchronize()
+    check(lv.L.shape == (2 * LV_POINTS,) * 2 and lv.B.shape == (4, 2 * LV_POINTS),
+          f"Lotka-Volterra shapes {tuple(lv.L.shape)}, {tuple(lv.B.shape)}")
+    print(f"Lotka-Volterra d={2 * LV_POINTS} discretized in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    launches.reset()
+    runs = {
+        fac: run_solver(pt.white.SemiLinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(DT), num_derivatives=NU,
+            spatial_kernel=prior(pt, 2), factorization=fac), lv)
+        for fac in ("householder", None)
+    }
+    launches.read(f"d={2 * LV_POINTS} Lotka-Volterra path", {"panel_lq": EXPECTED_LV_LAUNCHES})
+    for fac, name in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
+        report_run(f"d={2 * LV_POINTS} Lotka-Volterra, {name}", runs[fac], card_line,
+                   decays=False)
+    compare_runs("Lotka-Volterra: kernel path vs plain path", runs["householder"], runs[None])
+
+
+def phase_adaptive(pt, dev, launches, card_line):
+    """The phase-5 problem to ADAPTIVE_TMAX with the Adaptive() defaults
+    (``steprule=None``)."""
+    heat = full_width_heat(pt, dev, tmax=ADAPTIVE_TMAX)
+    print(f"adaptive: first dt {float(pt.odetools.step.Adaptive().first_dt(heat)):.6g}",
+          flush=True)
+    launches.reset()
+    runs = {fac: run_solver(heat_solver(pt, fac), heat, num_steps=None)
+            for fac in ("householder", None)}
+    hh, plain = runs["householder"], runs[None]
+    attempts = hh["info"]["num_attempted_steps"]
+    launches.read(f"N={N_POINTS} adaptive path ({attempts} attempts)",
+                  {"panel_lq": 13 + 17 * attempts})
+    for key in ("num_steps", "num_attempted_steps"):
+        check(hh["info"][key] == plain["info"][key],
+              f"adaptive: {key} {hh['info'][key]} (kernel) != {plain['info'][key]} (plain)")
+    for run in runs.values():
+        check(abs(run["state"].t - ADAPTIVE_TMAX) <= 1e-12, f"adaptive: ended at {run['state'].t}")
+    report_run(f"N={N_POINTS} adaptive, householder kernel", hh, card_line)
+    report_run(f"N={N_POINTS} adaptive, plain torch.linalg.qr", plain, card_line)
+    compare_runs("adaptive: kernel path vs plain path", hh, plain)
+
+
+def phase_semilinear_latent(pt, dev, launches, card_line):
+    """SemiLinearLatentForceEK1 on Lotka-Volterra at dx = 0.1 (d = 22): the
+    init LQ has 114 rows (1 panel), each step's 158 (2 panels)."""
+    lv = pt.examples.lotka_volterra_1d_discretized(dx=0.1, tmax=0.2, device=dev)
+    launches.reset()
+    runs = {
+        fac: run_solver(pt.latent.SemiLinearLatentForceEK1(
+            steprule=pt.odetools.step.Constant(0.05), spatial_kernel=prior(pt, 2),
+            factorization=fac), lv, num_steps=4)
+        for fac in ("householder", None)
+    }
+    launches.read("d=22 semilinear latent path", {"panel_lq": 1 + 2 * 4})
+    report_run("d=22 semilinear latent, householder kernel", runs["householder"], card_line,
+               d=22, decays=False)
+    compare_runs("semilinear latent: kernel path vs plain path", runs["householder"],
+                 runs[None], d=22)
 
 
 def phase_build(cuda_build):
@@ -416,27 +580,40 @@ def main():
     panel = phase_kernel(tq, dev)
     gram = phase_gram(tgram, dev)
     leaf = phase_leaf(tq, dev)
-    phase_golden(pt, dev, tq.panel_lq, "householder", 6, "the panel kernel")
-    # the 44 x 26 step pre-array is one leaf: one launch per step
-    phase_golden(pt, dev, tq.leaf_qr, tq.make_householder_factorization(), 5,
-                 "the R-form hook (leaf kernel)")
-    panel_launches, heat, plain = phase_full_width(pt, dev, wrappers, card_line)
-    gram_launches = phase_collocation(pt, dev, wrappers, card_line)
-    leaf_launches = phase_r_form(pt, tq, wrappers, heat, plain, card_line)
+    launches = Launches(wrappers)
+    white, latent = pt.white.LinearWhiteNoiseEK1, pt.latent.LinearLatentForceEK1
+    # d = 6: every pre-array is one 128-row panel (white: init 20 rows, steps
+    # 26; latent: init 32, steps 44) or, in the R form, one or two 32-column
+    # leaves per step (white 44 x 26; latent 80 x 44); the init stays plain
+    phase_golden(pt, dev, launches, white, "white", "householder", {"panel_lq": 6},
+                 "the panel kernel")
+    phase_golden(pt, dev, launches, white, "white", tq.make_householder_factorization(),
+                 {"leaf_qr": 5}, "the R-form hook (leaf kernel)")
+    heat, plain = phase_full_width(pt, dev, launches, card_line)
+    phase_collocation(pt, dev, launches, card_line)
+    phase_r_form(pt, tq, launches, heat, plain, card_line)
+    phase_golden(pt, dev, launches, latent, "latent", "householder", {"panel_lq": 6},
+                 "the panel kernel")
+    phase_golden(pt, dev, launches, latent, "latent", tq.make_householder_factorization(),
+                 {"leaf_qr": 10}, "the R-form hook (leaf kernel)")
+    phase_latent(pt, launches, heat, card_line)
+    phase_lotka_volterra(pt, dev, launches, card_line)
+    phase_adaptive(pt, dev, launches, card_line)
+    phase_semilinear_latent(pt, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
 
     records = []
-    for name, replaces, launches, (worst, ms, plain_ms) in (
-        ("panel_lq", "pnmol_tpu/ops/qr_householder.py:535", panel_launches, panel),
-        ("gram_radial", "pnmol_tpu/ops/pallas_gram.py:51", gram_launches, gram),
-        ("leaf_qr", "pnmol_tpu/ops/qr_householder.py:75", leaf_launches, leaf),
+    for name, replaces, (worst, ms, plain_ms) in (
+        ("panel_lq", "pnmol_tpu/ops/qr_householder.py:535", panel),
+        ("gram_radial", "pnmol_tpu/ops/pallas_gram.py:51", gram),
+        ("leaf_qr", "pnmol_tpu/ops/qr_householder.py:75", leaf),
     ):
         records.append({
             "name": name,
             "route": "cuda",
             "source": f"pnmol_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": launches,
+            "launches": launches.totals[name],
             "max_abs_err": worst,
             "ms": ms,
             "plain_ms": plain_ms,

@@ -1,10 +1,10 @@
 """pnmol_tpu_torch: the PyTorch and CUDA port of pnmol_tpu.
 
 Mirrors the JAX package's module names; the JAX package stays the
-reference. This slice carries the main path: ``heat_1d_discretized`` ->
-``LinearWhiteNoiseEK1`` with constant steps -> ``initialize`` -> a loop of
-``white_attempt_step``, with ``factorization="householder"`` running the
-hand-written CUDA panel kernel (``csrc/panel_lq.cu``) on the GPU::
+reference. The main path: ``heat_1d_discretized`` -> ``LinearWhiteNoiseEK1``
+-> ``initialize`` -> a loop of ``white_attempt_step``, with
+``factorization="householder"`` running the hand-written CUDA panel kernel
+(``csrc/panel_lq.cu``) on the GPU::
 
     import torch, pnmol_tpu_torch as pt
     heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device="cuda")
@@ -12,6 +12,11 @@ hand-written CUDA panel kernel (``csrc/panel_lq.cu``) on the GPU::
         steprule=pt.odetools.step.Constant(0.1), factorization="householder")
     sol = solver.solve(heat)
 
+The same entry points drive adaptive steps (``steprule=None`` is
+``Adaptive()``), the semilinear solvers ``white.SemiLinearWhiteNoiseEK0/EK1``
+on Dirichlet and Neumann problems and on the SIR and Lotka-Volterra systems
+(prior ``kernels.duplicate(...)``), and the latent-force solvers
+``latent.LinearLatentForceEK1`` and ``latent.SemiLinearLatentForceEK0/EK1``.
 Two further paths carry the other two kernels: global collocation
 (``discretize.collocation_global`` and ``scheme="collocation"``), whose
 radial Gram runs ``csrc/gram_radial.cu`` on the GPU at N >= 512, and the
@@ -26,12 +31,32 @@ from pnmol_tpu_torch import config, diffops, discretize, kernels, mesh, ops
 from pnmol_tpu_torch import models
 from pnmol_tpu_torch import models as pde  # alias, as in pnmol_tpu
 from pnmol_tpu_torch import interop, odetools
+from pnmol_tpu_torch.kernels import duplicate
+from pnmol_tpu_torch.models import examples
 from pnmol_tpu_torch.solvers import latent, pdefilter, white
+from pnmol_tpu_torch.solvers.latent import (
+    LinearLatentForceEK1,
+    SemiLinearLatentForceEK0,
+    SemiLinearLatentForceEK1,
+)
+from pnmol_tpu_torch.solvers.white import (
+    LinearWhiteNoiseEK1,
+    SemiLinearWhiteNoiseEK0,
+    SemiLinearWhiteNoiseEK1,
+)
 
 __all__ = [
+    "LinearLatentForceEK1",
+    "LinearWhiteNoiseEK1",
+    "SemiLinearLatentForceEK0",
+    "SemiLinearLatentForceEK1",
+    "SemiLinearWhiteNoiseEK0",
+    "SemiLinearWhiteNoiseEK1",
     "config",
     "diffops",
     "discretize",
+    "duplicate",
+    "examples",
     "interop",
     "kernels",
     "latent",

@@ -5,6 +5,7 @@ Kernel (RKHS) finite differences give a differentiation matrix ``L`` and a
 diagonal discretization-error factor ``E_sqrtm``. The per-stencil systems
 are solved in one ``torch.func.vmap`` batch; for stationary kernels only the
 distinct neighbour-offset patterns are solved (O(1) on a uniform grid).
+One-sided two-point stencils give the 1-D Neumann boundary operator.
 Global collocation gives a dense ``L`` and a dense Cholesky ``E_sqrtm`` from
 three N x N Grams, of which the kernel's own reaches the CUDA Gram kernel.
 """
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from pnmol_tpu_torch import kernels
+from pnmol_tpu_torch import diffops, kernels
 
 
 def _matern52_point_patches(kernel):
@@ -134,6 +135,46 @@ def fd_probabilistic(diffop, mesh_spatial, kernel=None, stencil_size_interior=3,
     E_sqrtm[indices_boundary, indices_boundary] = u_bnd
     E_sqrtm[indices_interior, indices_interior] = u_int
     return L, E_sqrtm
+
+
+def fd_probabilistic_neumann_1d(mesh_spatial, kernel=None, stencil_size=2,
+                                nugget_gram_matrix=0.0):
+    """Kernel-FD outward normal derivative at a 1-D mesh's two boundary
+    points: two-point one-sided stencils, the left weights negated.
+    Returns ``(B (2, N), R_sqrtm (2, 2))`` on the mesh's device."""
+    if stencil_size != 2:
+        raise NotImplementedError("1-D Neumann stencils have two points")
+    if kernel is None:
+        kernel = kernels.SquareExponential(input_scale=1.0, output_scale=1.0)
+
+    L_k, LL_k = _differentiate_kernel(diffops.gradient(), kernel)
+    points = mesh_spatial.points
+
+    def one_sided(idx_x, idx_neighbors):
+        return fd_coefficients(
+            x=points[idx_x], neighbors=points[list(idx_neighbors)], k=kernel,
+            L_k=L_k, LL_k=LL_k, nugget_gram_matrix=nugget_gram_matrix,
+        )
+
+    weights_left, uncertainty_left = one_sided(0, (0, 1))
+    weights_right, uncertainty_right = one_sided(-1, (-1, -2))
+
+    # projection onto (left point, its neighbour, right point, its neighbour)
+    N = len(mesh_spatial)
+    eye = torch.eye(N, dtype=points.dtype, device=points.device)
+    B_select = eye[[0, 1, N - 1, N - 2]]
+    diffmatrix = torch.block_diag(-weights_left[None, :], weights_right[None, :])
+    errormatrix = torch.diag(torch.stack([uncertainty_left, uncertainty_right]))
+    return diffmatrix @ B_select, errormatrix
+
+
+def fd_probabilistic_neumann(mesh_spatial, kernel=None, stencil_size=3,
+                             nugget_gram_matrix=0.0):
+    """The n-D directional Neumann operator: not ported yet."""
+    raise NotImplementedError(
+        "fd_probabilistic_neumann (Neumann boundaries beyond one spatial "
+        "dimension) is not ported yet (ROADMAP queue 1, item 16)"
+    )
 
 
 def collocation_global(diffop, mesh_spatial, kernel=None, nugget_gram_matrix=0.0,

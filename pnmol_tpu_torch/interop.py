@@ -1,6 +1,6 @@
 """Build the port's objects from NumPy arrays.
 
-Hands a problem, a white-solver cache or a filter state that another
+Hands a problem, a white- or latent-solver cache or a filter state that another
 implementation (for example the JAX package, converted with ``np.asarray``)
 produced to the port, so that both run from the same numbers. Takes NumPy
 arrays only; everything lands as float64 on ``device``.
@@ -12,19 +12,33 @@ import torch
 from pnmol_tpu_torch import config, mesh
 from pnmol_tpu_torch.models import problems
 from pnmol_tpu_torch.ops import rv
-from pnmol_tpu_torch.solvers import pdefilter, white
+from pnmol_tpu_torch.solvers import latent, pdefilter, white
 
 
 def _tensor(array, device):
     return torch.tensor(np.asarray(array), dtype=config.default_dtype(), device=device)
 
 
-def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device):
-    """A discretized linear Dirichlet problem from its arrays: ``L`` and
-    ``E_sqrtm`` (d, d), ``B`` (b, d), ``R_sqrtm`` (b, b), ``y0`` (d,) and the
-    mesh points (d, dim)."""
-    pde = problems.LinearEvolutionDirichlet(
-        diffop=None, diffop_scale=1.0, bbox=None, t0=t0, tmax=tmax, y0_fun=None
+def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device,
+                        boundary="dirichlet", f=None, df=None):
+    """A discretized problem from its arrays: ``L`` and ``E_sqrtm`` (d, d),
+    ``B`` (b, d), ``R_sqrtm`` (b, b), ``y0`` (d,) and the mesh points
+    (N, dim). ``boundary`` is ``"dirichlet"`` or ``"neumann"``; with torch
+    callables ``f(t, x)`` and ``df(t, x)`` the problem is semilinear (a
+    system when d is a multiple of N)."""
+    classes = {
+        (False, "dirichlet"): problems.LinearEvolutionDirichlet,
+        (False, "neumann"): problems.LinearEvolutionNeumann,
+        (True, "dirichlet"): problems.SemiLinearEvolutionDirichlet,
+        (True, "neumann"): problems.SemiLinearEvolutionNeumann,
+    }
+    semilinear = f is not None
+    if (semilinear, boundary) not in classes:
+        raise ValueError(f"Unknown boundary condition: {boundary!r}")
+    extra = dict(f=f, df=df, df_diagonal=None) if semilinear else {}
+    pde = classes[semilinear, boundary](
+        diffop=None, diffop_scale=1.0, bbox=None, t0=t0, tmax=tmax, y0_fun=None,
+        **extra,
     )
     pde.mesh_spatial = mesh.RectangularMesh(np.asarray(points), device=device)
     pde.L = _tensor(L, device)
@@ -43,6 +57,14 @@ def white_cache(*, A1d, Ql, L, B, E_bc_sqrtm, device):
         L=_tensor(L, device),
         B=_tensor(B, device),
         E_bc_sqrtm=_tensor(E_bc_sqrtm, device),
+    )
+
+
+def latent_cache(*, A1d, Ql, L, B, device):
+    """A :class:`pnmol_tpu_torch.solvers.latent.LatentSolverCache`."""
+    return latent.LatentSolverCache(
+        A1d=_tensor(A1d, device), Ql=_tensor(Ql, device), L=_tensor(L, device),
+        B=_tensor(B, device),
     )
 
 

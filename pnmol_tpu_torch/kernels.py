@@ -4,7 +4,8 @@ Counterpart of :mod:`pnmol_tpu.kernels`, with the same call convention:
 scalar pair -> scalar; equal-shape ``(N, d)`` inputs -> diagonal ``(N,)``;
 ``(N, d) x (d, K)`` -> full Gram ``(N, K)`` (callers pass ``k(X, Y.T)``).
 Pairwise functions are batched with ``torch.func.vmap``, so they must stay
-vmap-safe: no Python branching on tensor values.
+vmap-safe: no Python branching on tensor values. ``duplicate`` stacks one
+kernel into the block-diagonal prior of a PDE system.
 """
 
 import abc
@@ -155,3 +156,23 @@ class WhiteNoise(PairwiseKernel):
 
     def pairwise(self, x, y):
         return self.output_scale**2 * torch.all(x == y).to(x.dtype)
+
+
+class StackedKernel(Kernel):
+    """Stack of kernels whose Gram matrix is block-diagonal (PDE systems):
+    equal-shape inputs give the concatenated diagonals, a full-Gram call the
+    block-diagonal of the kernels' Grams."""
+
+    def __init__(self, *, kernel_list):
+        self.kernel_list = list(kernel_list)
+
+    def __call__(self, X, Y):
+        grams = [k(X, Y) for k in self.kernel_list]
+        if X.shape == Y.shape:
+            return torch.cat(grams)
+        return torch.block_diag(*grams)
+
+
+def duplicate(kernel, num):
+    """``num`` copies of ``kernel`` stacked into a block-diagonal Gram."""
+    return StackedKernel(kernel_list=[kernel] * num)

@@ -1,9 +1,36 @@
-"""Composable PDE-problem capabilities (counterpart of
-:mod:`pnmol_tpu.models.mixins`, the parts the Dirichlet heat problem uses)."""
+"""Composable PDE-problem capabilities: discretization, IVP structure,
+boundary conditions, nonlinearities (counterpart of
+:mod:`pnmol_tpu.models.mixins`).
+
+The method-of-lines conversion (``to_ivp``) is not ported yet (ROADMAP
+queue 1, item 13).
+"""
+
+import functools
 
 import torch
 
 from pnmol_tpu_torch import discretize
+
+
+def _boundary_operator(pde, mesh_spatial, kernel, stencil_size_boundary,
+                       nugget_gram_matrix):
+    """``(B, R_sqrtm)`` of one scalar field: the kernel-FD outward normal
+    derivative for Neumann boundaries, the boundary rows of the identity
+    with zero noise for Dirichlet ones."""
+    if isinstance(pde, (NeumannMixIn, SystemNeumannMixIn)):
+        if pde.dimension > 1:
+            return discretize.fd_probabilistic_neumann(
+                mesh_spatial=mesh_spatial, kernel=kernel,
+                stencil_size=stencil_size_boundary,
+                nugget_gram_matrix=nugget_gram_matrix,
+            )
+        return discretize.fd_probabilistic_neumann_1d(
+            mesh_spatial=mesh_spatial, kernel=kernel, stencil_size=2,
+            nugget_gram_matrix=nugget_gram_matrix,
+        )
+    B = mesh_spatial.boundary_projection_matrix
+    return B, B.new_zeros((B.shape[0], B.shape[0]))
 
 
 class DiscretizationMixIn:
@@ -14,11 +41,6 @@ class DiscretizationMixIn:
 
     def discretize(self, *, mesh_spatial, kernel, stencil_size_interior,
                    stencil_size_boundary, nugget_gram_matrix=0.0, scheme="fd"):
-        if not isinstance(self, DirichletMixIn):
-            raise NotImplementedError(
-                "only Dirichlet boundaries are ported; Neumann boundaries are "
-                "ROADMAP queue 1, item 10"
-            )
         if scheme == "fd":
             L, E_sqrtm = discretize.fd_probabilistic(
                 self.diffop,
@@ -43,13 +65,48 @@ class DiscretizationMixIn:
         self.E_sqrtm = self.diffop_scale * E_sqrtm
         self.mesh_spatial = mesh_spatial
 
-        self.B = mesh_spatial.boundary_projection_matrix
-        b = self.B.shape[0]
-        self.R_sqrtm = torch.zeros((b, b), dtype=self.B.dtype, device=self.B.device)
+        if isinstance(self, _BoundaryConditionMixInInterface):
+            self.B, self.R_sqrtm = _boundary_operator(
+                self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
+            )
 
         if isinstance(self, IVPMixIn):
             # scalar initial value: slice the zeroth dimension
             self.y0 = self.y0_fun(mesh_spatial.points)[:, 0]
+
+
+class SystemDiscretizationMixIn:
+    """Discretization for systems of PDEs: per-species FD, block-diagonal
+    ``L``, ``E_sqrtm``, ``B`` and ``R_sqrtm``."""
+
+    def discretize_system(self, *, mesh_spatial, kernel, stencil_size_interior,
+                          stencil_size_boundary, nugget_gram_matrix=0.0):
+        fd = functools.partial(
+            discretize.fd_probabilistic,
+            mesh_spatial=mesh_spatial,
+            kernel=kernel,
+            stencil_size_interior=stencil_size_interior,
+            stencil_size_boundary=stencil_size_boundary,
+            nugget_gram_matrix=nugget_gram_matrix,
+        )
+        blocks = [
+            (scale * L, scale * E)
+            for scale, (L, E) in zip(self.diffop_scale, map(fd, self.diffop))
+        ]
+        self.L = torch.block_diag(*[L for L, _ in blocks])
+        self.E_sqrtm = torch.block_diag(*[E for _, E in blocks])
+        self.mesh_spatial = mesh_spatial
+
+        if isinstance(self, _BoundaryConditionMixInInterface):
+            B, R_sqrtm = _boundary_operator(
+                self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
+            )
+            n = len(self.diffop)
+            self.B = torch.block_diag(*([B] * n))
+            self.R_sqrtm = torch.block_diag(*([R_sqrtm] * n))
+
+        if isinstance(self, IVPMixIn):
+            self.y0 = self.y0_fun(mesh_spatial.points).squeeze()
 
 
 class IVPMixIn:
@@ -62,12 +119,82 @@ class IVPMixIn:
         self.y0 = None  # filled by discretize()
         super().__init__(**kwargs)
 
+    @property
+    def t_span(self):
+        return self.t0, self.tmax
 
-class DirichletMixIn:
-    """Zero-value boundaries: the boundary operator ``B`` selects the
-    boundary points, with zero noise ``R_sqrtm``."""
+    def to_ivp(self):
+        raise NotImplementedError(
+            "the method-of-lines conversion (to_ivp) is not ported yet "
+            "(ROADMAP queue 1, item 13)"
+        )
 
+
+class _BoundaryConditionMixInInterface:
     def __init__(self, **kwargs):
         self.B = None
         self.R_sqrtm = None
+        super().__init__(**kwargs)
+
+    def bc_pad(self, x):
+        raise NotImplementedError
+
+    def bc_remove_pad(self, x):
+        raise NotImplementedError
+
+
+class NeumannMixIn(_BoundaryConditionMixInInterface):
+    """Zero-flux boundaries: pad with edge values."""
+
+    def bc_pad(self, x):
+        return torch.cat((x[:1], x, x[-1:]))
+
+    def bc_remove_pad(self, x):
+        return x[1:-1]
+
+
+class DirichletMixIn(_BoundaryConditionMixInInterface):
+    """Zero-value boundaries: pad with zeros."""
+
+    def bc_pad(self, x):
+        zero = x.new_zeros((1,))
+        return torch.cat((zero, x, zero))
+
+    def bc_remove_pad(self, x):
+        return x[1:-1]
+
+
+class _SystemBoundaryConditionMixinInterface(_BoundaryConditionMixInInterface):
+    """Apply a scalar BC rule to each species of a system."""
+
+    def __init__(self, *, bc, **kwargs):
+        self.bc = bc
+        super().__init__(**kwargs)
+
+    def bc_pad(self, x):
+        per_species = x.reshape((len(self.diffop), -1))
+        return torch.cat([self.bc.bc_pad(row) for row in per_species])
+
+    def bc_remove_pad(self, x):
+        per_species = x.reshape((len(self.diffop), -1))
+        return torch.cat([self.bc.bc_remove_pad(row) for row in per_species])
+
+
+class SystemNeumannMixIn(_SystemBoundaryConditionMixinInterface):
+    def __init__(self, **kwargs):
+        super().__init__(bc=NeumannMixIn(), **kwargs)
+
+
+class SystemDirichletMixIn(_SystemBoundaryConditionMixinInterface):
+    def __init__(self, **kwargs):
+        super().__init__(bc=DirichletMixIn(), **kwargs)
+
+
+class NonLinearMixIn:
+    """Semilinear right-hand side: f, its Jacobian, and optionally its diagonal."""
+
+    def __init__(self, *, f, df, df_diagonal, **kwargs):
+        self.f = f
+        self.df = df
+        self.df_diagonal = df_diagonal
         super().__init__(**kwargs)

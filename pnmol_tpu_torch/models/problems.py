@@ -1,5 +1,8 @@
-"""PDE base class and the mixin-composed problem class of the heat equation
-(counterpart of :mod:`pnmol_tpu.models.problems`)."""
+"""PDE base class and the mixin-composed problem classes (counterpart of
+:mod:`pnmol_tpu.models.problems`, without the method-of-lines conversion
+mixins, ROADMAP queue 1, item 13)."""
+
+import numpy as np
 
 from pnmol_tpu_torch.models import mixins
 
@@ -18,6 +21,14 @@ class PDE:
         self.mesh_spatial = None
         super().__init__(**kwargs)
 
+    @property
+    def is_discretized(self):
+        return self.L is not None
+
+    @property
+    def dimension(self):
+        return np.asarray(self.bbox).ndim
+
 
 class LinearEvolutionDirichlet(
     mixins.IVPMixIn,
@@ -26,3 +37,46 @@ class LinearEvolutionDirichlet(
     PDE,
 ):
     """Linear, time-dependent evolution equation with Dirichlet boundaries."""
+
+
+class LinearEvolutionNeumann(
+    mixins.IVPMixIn,
+    mixins.DiscretizationMixIn,
+    mixins.NeumannMixIn,
+    PDE,
+):
+    """Linear, time-dependent evolution equation with Neumann boundaries."""
+
+
+class SystemLinearPDENeumann(mixins.SystemDiscretizationMixIn, mixins.NeumannMixIn, PDE):
+    """Systems of linear PDEs with Neumann boundaries (testing)."""
+
+
+class SystemSemiLinearEvolutionNeumann(
+    mixins.IVPMixIn,
+    mixins.NonLinearMixIn,
+    mixins.SystemDiscretizationMixIn,
+    mixins.SystemNeumannMixIn,
+    PDE,
+):
+    """Systems of semilinear, time-dependent PDEs with Neumann boundaries."""
+
+
+class SemiLinearEvolutionNeumann(
+    mixins.IVPMixIn,
+    mixins.NonLinearMixIn,
+    mixins.DiscretizationMixIn,
+    mixins.NeumannMixIn,
+    PDE,
+):
+    """Semilinear evolution equation with Neumann boundaries."""
+
+
+class SemiLinearEvolutionDirichlet(
+    mixins.IVPMixIn,
+    mixins.NonLinearMixIn,
+    mixins.DiscretizationMixIn,
+    mixins.DirichletMixIn,
+    PDE,
+):
+    """Semilinear evolution equation with Dirichlet boundaries."""

@@ -1,4 +1,4 @@
-"""ODE-solver utilities: step-size rules."""
+"""ODE-solver utilities: step-size rules (constant and adaptive)."""
 
 from pnmol_tpu_torch.odetools import step
 

@@ -1,7 +1,8 @@
 """Numerical layer: random variables, IWP prior, square-root Kalman blocks,
 the Householder factorizations with their CUDA kernels, and the radial Gram
-with its CUDA kernel (all kernels built by :mod:`.cuda_build`)."""
+with its CUDA kernel (all kernels built by :mod:`.cuda_build`), and the
+stacked state space of the latent-force solvers."""
 
-from pnmol_tpu_torch.ops import cuda_build, gram, iwp, qr_householder, rv, sqrt
+from pnmol_tpu_torch.ops import cuda_build, gram, iwp, qr_householder, rv, sqrt, stacked_ssm
 
-__all__ = ["cuda_build", "gram", "iwp", "qr_householder", "rv", "sqrt"]
+__all__ = ["cuda_build", "gram", "iwp", "qr_householder", "rv", "sqrt", "stacked_ssm"]

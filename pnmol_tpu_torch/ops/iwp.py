@@ -124,8 +124,16 @@ class IntegratedWienerTransition:
         self.wp_diffusion_sqrtm = wp_diffusion_sqrtm
 
     @property
+    def n(self):
+        return self.num_derivatives + 1
+
+    @property
     def state_dimension(self):
-        return self.wiener_process_dimension * (self.num_derivatives + 1)
+        return self.wiener_process_dimension * self.n
+
+    def _eye(self, size):
+        return torch.eye(size, dtype=self.wp_diffusion_sqrtm.dtype,
+                         device=self.wp_diffusion_sqrtm.device)
 
     @functools.cached_property
     def preconditioned_discretize_1d(self):
@@ -134,6 +142,38 @@ class IntegratedWienerTransition:
             dtype=self.wp_diffusion_sqrtm.dtype,
             device=self.wp_diffusion_sqrtm.device,
         )
+
+    # -- dense materializations (experiments and parity tests) ---------------
+
+    @functools.cached_property
+    def preconditioned_discretize(self):
+        """Dense ``(kron(I_d, A_1d), kron(wp_diffusion_sqrtm, L_Q1d))``."""
+        A_1d, L_Q1d = self.preconditioned_discretize_1d
+        A = kron_point_major(self._eye(self.wiener_process_dimension), A_1d)
+        return A, kron_point_major(self.wp_diffusion_sqrtm, L_Q1d)
+
+    def nordsieck_preconditioner(self, dt):
+        """Dense ``(kron(I_d, diag(p)), kron(I_d, diag(1/p)))``."""
+        p, p_inv = nordsieck_scales_1d(
+            self.num_derivatives, dt, dtype=self.wp_diffusion_sqrtm.dtype,
+            device=self.wp_diffusion_sqrtm.device,
+        )
+        eye = self._eye(self.wiener_process_dimension)
+        return torch.kron(eye, torch.diag(p)), torch.kron(eye, torch.diag(p_inv))
+
+    def non_preconditioned_discretize(self, dt):
+        """Dense ``(A(dt), L_Q(dt))`` in the raw (unpreconditioned) coordinates."""
+        P, P_inv = self.nordsieck_preconditioner(dt)
+        A_pre, LQ_pre = self.preconditioned_discretize
+        return P @ A_pre @ P_inv, P @ LQ_pre
+
+    def projection_matrix_1d(self, derivative):
+        return self._eye(self.n)[derivative:derivative + 1]
+
+    def projection_matrix(self, derivative):
+        """Dense ``E_i = kron(I_d, e_i)``, shape (d, D)."""
+        return torch.kron(self._eye(self.wiener_process_dimension),
+                          self.projection_matrix_1d(derivative))
 
     @functools.cached_property
     def process_noise_factor(self):

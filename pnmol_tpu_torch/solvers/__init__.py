@@ -1,4 +1,5 @@
-"""Time-integration layer: PDE-filter solve loops and the white-noise EK1."""
+"""Time-integration layer: the PDE-filter solve loop and step controller,
+the white-noise and the latent-force EK1/EK0 solvers."""
 
 from pnmol_tpu_torch.solvers import latent, pdefilter, white
 

@@ -1,18 +1,20 @@
-"""White-noise EK1 PDE filter for linear problems.
+"""White-noise EK1/EK0 PDE filters: the discretization error enters as
+measurement noise.
 
-Counterpart of :mod:`pnmol_tpu.solvers.white` on the main path: the
-discretization error enters as measurement noise, the prior is the
-Gram-Cholesky IWP, the initialization is the closed-form y0 update followed
-by one sqrt update on the PDE measurement, and each step runs ONE fused
-pre-array factorization: ``torch.linalg.qr`` (``factorization=None``), the
-Householder LQ with the CUDA panel kernel (``factorization="householder"``),
-or a hook such as the R-form Householder QR with the CUDA leaf kernel
+Counterpart of :mod:`pnmol_tpu.solvers.white` for linear and semilinear
+problems: the prior is the Gram-Cholesky IWP, the initialization is the
+closed-form y0 update followed by one sqrt update on the PDE measurement,
+and each step runs ONE fused pre-array factorization: ``torch.linalg.qr``
+(``factorization=None``), the Householder LQ with the CUDA panel kernel
+(``factorization="householder"``), or a hook such as the R-form Householder
+QR with the CUDA leaf kernel
 (:func:`pnmol_tpu_torch.ops.qr_householder.make_householder_factorization`).
 The state lives in the point-major Nordsieck layout of
 :mod:`pnmol_tpu_torch.ops.iwp`, so the measurement matrix ``H`` is never
 materialized.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,20 +45,65 @@ def _measurement_operator(cache, G, p, n):
     return apply_H
 
 
-def _linearize(L, m_at):
-    """EK1 linearization of a linear problem: (G, shift) = (L, 0)."""
-    return L, torch.zeros_like(m_at)
+def _linearize(pde_f, pde_df, L, t, m_at, linear: bool, ek_order: int = 1):
+    """EK{0,1} linearization at the predicted point: ``(G, shift)``.
+
+    Linear problems: ``(L, 0)``. EK1 linearizes ``f`` with its Jacobian,
+    ``(Jx + L, Jx m - f(m))``; EK0 keeps the innovation mean but carries only
+    ``L`` in the measurement operator, ``(L, -f(m))``, and never evaluates
+    ``df``.
+    """
+    if linear:
+        return L, torch.zeros_like(m_at)
+    fx = pde_f(t, m_at)
+    if ek_order == 0:
+        return L, -fx
+    Jx = pde_df(t, m_at)
+    return Jx + L, Jx @ m_at - fx
+
+
+def _factorize(factorization, HACl, ACl, HQl, Ql, E):
+    """The fused predict-update factorization, as ``(posterior factor, L21,
+    K, Sl)`` with exactly one of ``L21`` (raw blocks, ``S_xz = L21 Sl^T``)
+    and ``K`` (the legacy gain contract of a hook without ``.blocks``)."""
+    blocks = (
+        sqrt.fused_predict_update_blocks if factorization is None
+        else getattr(factorization, "blocks", None)
+    )
+    if blocks is not None:
+        C, L21, Sl = blocks(HACl, ACl, HQl, Ql, E)
+        return C, L21, None, Sl
+    C, K, Sl = factorization(HACl, ACl, HQl, Ql, E)
+    return C, None, K, Sl
+
+
+def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim):
+    """Whitened residual via the LOWER solve ``Sl w = z`` (``z^T S^{-1} z``
+    with ``S = Sl Sl^T``, invariant to row signs), the local diffusion, the
+    mean update ``K z = L21 w`` and the un-preconditioning. Returns
+    ``(mean (n, d'), cov factor, diffusion_sq)``."""
+    residual_white = torch.linalg.solve_triangular(Sl, z[:, None], upper=False)[:, 0]
+    diffusion_sq = residual_white @ residual_white / m_dim
+    correction = L21 @ residual_white if K is None else K @ z
+    m_new_flat = iwp.mean_to_flat(Mp) - correction
+    M_new = iwp.flat_to_mean(m_new_flat, n) * p[:, None]
+    return M_new, iwp.scale_stack(p, Cl_new), diffusion_sq
 
 
 def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
-                       factorization=None):
-    """One white-noise EK1 step of a linear problem.
+                       f=None, df=None, linear=True, factorization=None,
+                       meascov_dt_scaled=False, ek_order=1):
+    """One white-noise EK{0,1} step.
 
     Returns ``(mean (n, d), cov_sqrtm (D, D), error_estimate (d,),
-    reference (d,), diffusion_sq ())``. ``factorization`` is ``None`` (the
-    fused pre-array QR), a hook with a ``.blocks`` attribute returning
-    ``(posterior factor, L21, Sl)``, or a hook without one returning
-    ``(posterior factor, gain, Sl)`` (the legacy gain contract).
+    reference (d,), diffusion_sq ())``. ``f``/``df`` are the problem's
+    nonlinearity and its Jacobian (unused when ``linear``), evaluated at
+    ``t_next``. ``factorization`` is ``None`` (the fused pre-array QR), a
+    hook with a ``.blocks`` attribute returning ``(posterior factor, L21,
+    Sl)``, or a hook without one returning ``(posterior factor, gain, Sl)``
+    (the legacy gain contract). ``meascov_dt_scaled`` uses the measurement
+    noise factor ``sqrt(dt) E`` (the discretization error as a white noise
+    in time).
     """
     n = num_derivatives + 1
     d = mean.shape[1]
@@ -65,6 +112,8 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
         num_derivatives, dt, dtype=mean.dtype, device=mean.device
     )
     E_bc = cache.E_bc_sqrtm
+    if meascov_dt_scaled:
+        E_bc = dt**0.5 * E_bc
 
     # [Precondition] and [Predict mean]
     M = mean * p_inv[:, None]
@@ -73,7 +122,7 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
     # [Linearize] at the predicted point; [Residual] z = H mp + [shift; 0]
     m_at = p[0] * Mp[0]
-    G, shift = _linearize(cache.L, m_at)
+    G, shift = _linearize(f, df, cache.L, t_next, m_at, linear, ek_order)
     apply_H = _measurement_operator(cache, G, p, n)
     z = torch.cat((p[1] * Mp[1] - G @ m_at + shift, cache.B @ m_at))
 
@@ -84,29 +133,12 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     sigma_squared = z @ whitened / m_dim
     error = dt * (torch.sqrt(torch.diagonal(S)) * torch.sqrt(sigma_squared))[:d]
 
-    # [Predict + update covariance]: raw factor blocks (Cl_new, L21, Sl) with
-    # S_xz = L21 Sl^T, so the gain L21 Sl^{-1} is never formed; a hook
-    # without .blocks returns the gain K instead of L21
+    # [Predict + update covariance]: the gain L21 Sl^{-1} is never formed
     ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
-    HACl = apply_H(ACl)
-    K = None
-    if factorization is None:
-        Cl_new, L21, Sl = sqrt.fused_predict_update_blocks(HACl, ACl, HQl, cache.Ql, E_bc)
-    elif hasattr(factorization, "blocks"):
-        Cl_new, L21, Sl = factorization.blocks(HACl, ACl, HQl, cache.Ql, E_bc)
-    else:
-        Cl_new, K, Sl = factorization(HACl, ACl, HQl, cache.Ql, E_bc)
+    Cl_new, L21, K, Sl = _factorize(factorization, apply_H(ACl), ACl, HQl, cache.Ql, E_bc)
 
-    # [Calibrate + mean update] whitened residual via the LOWER solve
-    # Sl w = z (z^T S^{-1} z with S = Sl Sl^T, invariant to row signs)
-    residual_white = torch.linalg.solve_triangular(Sl, z[:, None], upper=False)[:, 0]
-    diffusion_sq = residual_white @ residual_white / m_dim
-    correction = L21 @ residual_white if K is None else K @ z
-    m_new_flat = iwp.mean_to_flat(Mp) - correction
-
-    # [Un-precondition]
-    M_new = iwp.flat_to_mean(m_new_flat, n) * p[:, None]
-    C_new = iwp.scale_stack(p, Cl_new)
+    # [Calibrate + mean update] and [Un-precondition]
+    M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
     return M_new, C_new, error, torch.abs(M_new[0]), diffusion_sq
 
 
@@ -170,8 +202,17 @@ def resolve_householder_hooks(d: int, *, pair_columns: bool = False):
     return factorization, init_update
 
 
-class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
-    """White-noise EK1 for linear evolution equations (Jx = L exactly).
+def check_init_size(d):
+    """Raise where the initialization needs the blocked triangular solves."""
+    if d >= 4096:
+        raise NotImplementedError(
+            "initialization at d >= 4096 needs the blocked triangular "
+            "solves, which are not ported yet (ROADMAP queue 1, item 12)"
+        )
+
+
+class FusedFactorizationFilter(pdefilter.PDEFilter):
+    """The factorization options both solver families share.
 
     ``factorization``: ``None`` (fused pre-array ``torch.linalg.qr``),
     ``"householder"`` (the blocked Householder LQ with the CUDA panel
@@ -179,17 +220,14 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
     (``make_householder_lq_factorization``, or the R-form
     ``make_householder_factorization`` with the CUDA leaf kernel, from
     :mod:`pnmol_tpu_torch.ops.qr_householder`); a hook leaves the
-    initialization on the plain update, as in the JAX solver. The other
-    options of the JAX solver raise ``NotImplementedError``.
+    initialization on the plain update, as in the JAX solvers. The two-QR
+    pipeline (``fused=False``, ``propagate_band``) and steady-state mode
+    raise ``NotImplementedError``.
     """
 
-    def __init__(self, *args, meascov_dt_scaled=False, factorization=None,
-                 fused=True, propagate_band=None, steady_state=False, **kwargs):
+    def __init__(self, *args, factorization=None, fused=True, propagate_band=None,
+                 steady_state=False, **kwargs):
         super().__init__(*args, **kwargs)
-        if meascov_dt_scaled:
-            raise NotImplementedError(
-                "meascov_dt_scaled is not ported yet (ROADMAP queue 1, item 10)"
-            )
         if not fused or propagate_band is not None:
             raise NotImplementedError(
                 "the two-QR pipeline (fused=False, propagate_band) is not "
@@ -204,22 +242,52 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
         self.factorization = None if factorization == "householder" else factorization
         self._init_update = None
         self._cache = None
+        self._step_fn = None
+
+    def _init_update_blocks(self, d, hook_points):
+        """Resolve ``"householder"`` for a problem of ``d`` points, with hooks
+        sized for ``hook_points`` (the latent stack passes 2d), and return
+        the initialization update ``(HC, C, R) -> (posterior, L21, L1)``."""
+        if self._factorization_spec == "householder" and self._factorization_d != d:
+            self.factorization, self._init_update = resolve_householder_hooks(hook_points)
+            self._factorization_d = d
+        if self._init_update is None:
+            return sqrt.update_sqrt_from_products_blocks
+        return self._init_update.blocks
+
+    def _step_function(self, pde):
+        return self._step_fn
+
+
+class _WhiteNoiseEK1Base(FusedFactorizationFilter):
+    """Shared initialization and step plumbing of the white-noise solvers.
+
+    ``meascov_dt_scaled=True`` uses the per-step measurement covariance
+    ``dt E E^T``; for ``factorization`` see :class:`FusedFactorizationFilter`.
+    """
+
+    LINEAR: bool = True
+    EK_ORDER: int = 1
+
+    def __init__(self, *args, meascov_dt_scaled=False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.meascov_dt_scaled = meascov_dt_scaled
+
+    @property
+    def E0(self):
+        """Dense derivative-0 projection (d, D); experiments only."""
+        return self.iwp.projection_matrix(0)
+
+    @property
+    def E1(self):
+        return self.iwp.projection_matrix(1)
 
     def initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
-        if d >= 4096:
-            raise NotImplementedError(
-                "initialization at d >= 4096 needs the blocked triangular "
-                "solves, which are not ported yet (ROADMAP queue 1, item 12)"
-            )
-        if self._factorization_spec == "householder" and self._factorization_d != d:
-            self.factorization, self._init_update = resolve_householder_hooks(d)
-            self._factorization_d = d
-        update_blocks = (
-            self._init_update.blocks
-            if self._init_update is not None
-            else sqrt.update_sqrt_from_products_blocks
-        )
+        check_init_size(d)
+        update_blocks = self._init_update_blocks(d, d)
+        f = getattr(pde, "f", None)
+        df = getattr(pde, "df", None)
 
         y0 = pde.y0
         nugget = 1e-10  # conditioning nugget of the reference, for f64
@@ -234,7 +302,7 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
 
         # PDE measurement on the derivative-{0,1} sub-state. After the y0
         # update the mean is zero except on derivative 0, so the residual is
-        # closed form: z = [-L u0; B u0].
+        # closed form: z = [-L u0 - f(u0); B u0].
         trans = iwp.IntegratedWienerTransition(
             num_derivatives=self.num_derivatives,
             wiener_process_dimension=d,
@@ -244,10 +312,15 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
         E_bc = torch.block_diag(pde.E_sqrtm, pde.R_sqrtm)
         B1 = diffuse_scale * chol_gram  # derivative >= 1 prior factor block
         L, B = pde.L, pde.B
-        z_pde = torch.cat((-L @ u0, B @ u0))
+        if self.LINEAR:
+            G_lin, z_ode = L, -L @ u0
+        else:
+            G_lin = L if self.EK_ORDER == 0 else df(pde.t0, u0) + L
+            z_ode = -L @ u0 - f(pde.t0, u0)
+        z_pde = torch.cat((z_ode, B @ u0))
         HCsub = torch.cat(
             (
-                torch.cat((-L @ C00, B1), dim=1),
+                torch.cat((-G_lin @ C00, B1), dim=1),
                 torch.cat((B @ C00, u0.new_zeros((B.shape[0], d))), dim=1),
             ),
             dim=0,
@@ -261,6 +334,12 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
         self._cache = WhiteSolverCache(
             A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
         )
+        self._step_fn = functools.partial(
+            white_attempt_step, self._cache,
+            num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
+            factorization=self.factorization,
+            meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
+        )
         self.iwp = trans
         return pdefilter.PDEFilterState(
             t=float(pde.t0),
@@ -270,31 +349,26 @@ class LinearWhiteNoiseEK1(pdefilter.PDEFilter):
             diffusion_squared_local=m0.new_zeros(()),
         )
 
-    def attempt_step(self, state, dt, t_next):
-        mean, cov, error, reference, diff_sq = white_attempt_step(
-            self._cache, state.y.mean, state.y.cov_sqrtm, t_next, dt,
-            num_derivatives=self.num_derivatives,
-            factorization=self.factorization,
-        )
-        new_state = pdefilter.PDEFilterState(
-            t=t_next,
-            y=rv.MultivariateNormal(mean=mean, cov_sqrtm=cov),
-            error_estimate=error,
-            reference_state=reference,
-            diffusion_squared_local=diff_sq,
-        )
-        return new_state, dict(num_f_evaluations=1, num_df_evaluations=1)
+
+class LinearWhiteNoiseEK1(_WhiteNoiseEK1Base):
+    """EK1 for linear evolution equations (Jx = L exactly)."""
+
+    LINEAR = True
 
 
-class SemiLinearWhiteNoiseEK0:
-    """Not ported yet (ROADMAP queue 1, item 10)."""
+class SemiLinearWhiteNoiseEK0(_WhiteNoiseEK1Base):
+    """EK0 for semilinear problems: the zeroth-order measurement model.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet: the semilinear solvers "
-            "are ROADMAP queue 1, item 10"
-        )
+    Same innovation mean as EK1 (``z = u' - L u - f(u_pred)``), but the
+    measurement operator carries only ``L`` and ``df`` is never evaluated.
+    On linear problems EK0 == EK1 exactly.
+    """
+
+    LINEAR = False
+    EK_ORDER = 0
 
 
-class SemiLinearWhiteNoiseEK1(SemiLinearWhiteNoiseEK0):
-    """Not ported yet (ROADMAP queue 1, item 10)."""
+class SemiLinearWhiteNoiseEK1(_WhiteNoiseEK1Base):
+    """EK1 for semilinear evolution equations u_t = L u + f(u)."""
+
+    LINEAR = False

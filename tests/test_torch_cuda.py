@@ -1,5 +1,6 @@
 """The CUDA kernels (panel LQ, radial Gram, leaf QR) on the card, against
-their plain PyTorch versions.
+their plain PyTorch versions, and the latent-force golden through the panel
+kernel.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed (skip the JAX-pinning conftest there)::
@@ -8,6 +9,8 @@ installed (skip the JAX-pinning conftest there)::
 
 Without a GPU every test skips.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -32,8 +35,10 @@ def cuda():
 @pytest.mark.parametrize(
     "rows, cols, off, zero_rows",
     [(128, 3586, 0, ()), (128, 600, 40, ()), (32, 3586, 0, ()),
-     (128, 1538, 0, range(2, 128)), (2, 1538, 0, ())],
-    ids=["step-panel", "offset", "leaf-form", "ragged-zero-rows", "two-rows"],
+     (128, 1538, 0, range(2, 128)), (2, 1538, 0, ()), (128, 6658, 0, ()), (2, 6658, 0, ()),
+     (2, 3074, 0, ())],
+    ids=["step-panel", "offset", "leaf-form", "ragged-zero-rows", "two-rows",
+         "latent-step-panel", "latent-two-rows", "latent-last-panel"],
 )
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_matches_the_plain_version(cuda, rows, cols, off, zero_rows, dtype):
@@ -57,6 +62,42 @@ def test_blocked_sweep_matches_the_gram(cuda):
     L = tq.blocked_lq_l(W, block=64)
     G = W @ W.T
     assert ((L @ L.T - G).abs().max() / G.abs().max()).item() <= 1e-12
+
+
+def test_blocked_sweep_of_the_latent_step_pre_array_matches_the_gram(cuda):
+    """3586 x 6658: the latent step's shape at N = 512, 29 panels, the last
+    of 2 rows."""
+    W = torch.tensor(np.random.default_rng(6).standard_normal((3586, 6658)), device=cuda)
+    before = tq.panel_lq.launches
+    L = tq.blocked_lq_l(W)
+    assert tq.panel_lq.launches == before + 29
+    G = W @ W.T
+    assert ((L @ L.T - G).abs().max() / G.abs().max()).item() <= 1e-13
+    assert torch.all(torch.triu(L, 1) == 0).item()
+
+
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "heat_trajectories.npz"
+
+
+@pytest.mark.parametrize("factorization", ["householder", "r-form"])
+def test_latent_golden_through_the_kernels(cuda, factorization):
+    """The dx = 0.2 latent golden (thresholds of tests/test_golden.py) on the
+    card: one panel per LQ (the init and 5 steps), or two leaves per step in
+    the R form."""
+    hook = "householder" if factorization == "householder" else tq.make_householder_factorization()
+    wrapper, launches = (tq.panel_lq, 6) if factorization == "householder" else (tq.leaf_qr, 10)
+    heat = pt.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=cuda)
+    solver = pt.latent.LinearLatentForceEK1(
+        steprule=pt.odetools.step.Constant(0.1),
+        spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise(), factorization=hook)
+    before = wrapper.launches
+    sol = solver.solve(heat)
+    assert wrapper.launches == before + launches
+    with np.load(GOLDEN) as golden:
+        np.testing.assert_allclose(sol.mean.cpu().numpy(), golden["latent_mean"],
+                                   rtol=1e-10, atol=1e-13)
+        np.testing.assert_allclose(float(sol.diffusion_squared_calibrated),
+                                   golden["latent_diffusion"], rtol=1e-10)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

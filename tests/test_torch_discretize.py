@@ -123,10 +123,10 @@ def test_gradient_divergence_laplace():
 
 
 def test_out_of_slice_problem_options_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pt.pde.examples.heat_1d_discretized(dx=0.2, bcond="neumann", device="cpu")
     heat = pt.pde.examples.heat_1d(tmax=1.0)
     mesh = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], step=0.2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        pt.discretize.fd_probabilistic_neumann(mesh)
     with pytest.raises(ValueError, match="Unknown discretization scheme"):
         heat.discretize(mesh_spatial=mesh, kernel=pt.kernels.SquareExponential(),
                         stencil_size_interior=3, stencil_size_boundary=3,

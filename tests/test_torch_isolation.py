@@ -37,9 +37,21 @@ def test_no_jax_imports_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+# the modules of the adaptive, semilinear and latent-force slice
+SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
+                 "models.examples", "models.mixins", "models.problems", "discretize")
+
+
+def test_the_slice_modules_are_checked():
+    checked = {str(p.relative_to(REPO / "pnmol_tpu_torch"))[:-3].replace("/", ".")
+               for p in _sources() if p.parent != REPO}
+    assert set(SLICE_MODULES) <= checked
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, pnmol_tpu_torch\n"
+        "import sys, importlib, pnmol_tpu_torch\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module('pnmol_tpu_torch.' + m)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
