@@ -9,12 +9,17 @@ Phases (any failure exits non-zero; nothing is swallowed):
    ``nvcc`` each, all started together), printing each build's time;
 3. kernel: the CUDA panel kernel against its plain PyTorch version on the
    card (f64, random slabs at the solvers' shapes, up to the latent step's
-   128 x 6658 panel and its ragged 2-row last panel), full blocked LQs of the
-   2050 x 3586 white and the 3586 x 6658 latent step pre-arrays, and both
-   versions' times at 128 x 3586 and 128 x 6658; then the radial Gram kernel
-   and the leaf QR kernel against their plain versions (f64 and f32), a full
-   blocked QR of the 3586 x 2050 R-form pre-array, and the kernels', plain
-   versions' and library's times;
+   128 x 6658 panel and its ragged 2-row last panel, and an all-zero panel),
+   each launched twice with bitwise-equal results; full blocked LQs of the
+   2050 x 3586 white and the 3586 x 6658 latent step pre-arrays against
+   their Grams and cuSOLVER's QR; the panel's time by CTA count (the rule's
+   choice, about 32, 66 and 131), each launch shape checked against the
+   plain version first; and at 128 x 3586, 128 x 6658,
+   32 x 3586 and 128 x 1538 the kernel's, plain version's and
+   ``torch.geqrf``'s times beside the bound. Then the radial Gram kernel and the leaf QR kernel
+   against their plain versions (f64 and f32), a full blocked QR of the
+   3586 x 2050 R-form pre-array, and the kernels', plain versions' and
+   library's times beside their bounds;
 4. golden: the dx = 0.2 heat solve against
    ``tests/golden/heat_trajectories.npz``, through the panel kernel and
    through the R-form hook (leaf kernel);
@@ -114,14 +119,61 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet, dense, at
+# 700 W): HBM bandwidth; FP64 on the tensor cores (full FP64 precision,
+# twice the 34 TFLOP/s outside them) and FP32 outside them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+
+
+def bound(ops, nbytes, dtype):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
+    and the operations over the peak rate of ``dtype``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def panel_bound(rows, cols, off, dtype):
+    """Bound of one Householder LQ panel: reflector k's norm and scaling
+    (3 t flops on its tail of t lanes), its dot with every other row and the
+    update of the rows below (2 (t + 1) each), and row k of T^T (k (k + 1));
+    the slab read once, LV and T^T written once."""
+    ops = 0
+    for k in range(rows):
+        t = cols - off - k - 1
+        ops += 3 * t + (2 * rows - 2 - k) * 2 * (t + 1) + k * (k + 1)
+    item = torch.finfo(dtype).bits // 8
+    return bound(ops, (2 * rows * cols + rows * rows) * item, dtype)
+
+
+def leaf_bound(rows, cols, dtype):
+    """Bound of one tall Householder QR slab (the panel's count, transposed)."""
+    ops = 0
+    for k in range(cols):
+        t = rows - k - 1
+        ops += 3 * t + (2 * cols - 2 - k) * 2 * (t + 1) + k * (k + 1)
+    item = torch.finfo(dtype).bits // 8
+    return bound(ops, (2 * rows * cols + cols * cols) * item, dtype)
+
+
+def gram_bound(n, m, dim, dtype):
+    """Bound of one radial Gram: the points read once, n m entries written;
+    2 dim + 3 flops for each squared distance and about 8 for the profile."""
+    item = torch.finfo(dtype).bits // 8
+    return bound(n * m * (2 * dim + 11), (n * dim + m * dim + n * m) * item, dtype)
+
+
 def phase_kernel(tq, dev):
     rng = np.random.default_rng(0)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [
         ("rows 128, cols 3586, off 0 (step panel)", 128, 3586, 0, ()),
         ("rows 128, cols 3586, off 40", 128, 3586, 40, ()),
         ("rows 32, cols 3586, off 0 (leaf form)", 32, 3586, 0, ()),
         ("rows 128, cols 1538, rows 2.. zero (ragged)", 128, 1538, 0, range(2, 128)),
+        ("rows 128, cols 1538, all rows zero", 128, 1538, 0, range(128)),
         ("rows 128, cols 6658, off 0 (latent step panel)", 128, 6658, 0, ()),
+        ("rows 128, cols 6658, off 40", 128, 6658, 40, ()),
         ("rows 2, cols 6658, off 0 (2-row panel)", 2, 6658, 0, ()),
         ("rows 2, cols 3074, off 0 (latent last panel)", 2, 3074, 0, ()),
     ]
@@ -131,19 +183,26 @@ def phase_kernel(tq, dev):
         slab[list(zero_rows)] = 0.0
         x = torch.tensor(slab, device=dev)
         lv, tT = tq.panel_lq(x, off)
+        lv2, tT2 = tq.panel_lq(x, off)
         torch.cuda.synchronize()
+        same = torch.equal(lv, lv2) and torch.equal(tT, tT2)
         lv_ref, tT_ref = tq.panel_lq_reference(x, off)
         err_lv = (lv - lv_ref).abs().max().item()
         err_t = (tT - tT_ref).abs().max().item()
-        tol = 1e-12 * np.abs(slab).max()  # f64 rounding of one panel, with margin
+        # f64 rounding of one panel, with margin (an all-zero panel: exact)
+        tol = 1e-12 * np.abs(slab).max()
+        launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
         print(f"kernel vs plain, {name}: max|dLV| {err_lv:.3e}, max|dT^T| {err_t:.3e}"
-              f" (tol {tol:.3e})", flush=True)
+              f" (tol {tol:.3e}); {launch.ctas} CTAs of {launch.width} columns in"
+              f" {'registers' if launch.registers else 'global memory'};"
+              f" two launches bitwise equal: {same}", flush=True)
         check(np.isfinite(err_lv) and np.isfinite(err_t), f"{name}: non-finite output")
         check(err_lv <= tol and err_t <= tol, f"{name}: kernel disagrees with plain version")
+        check(same, f"{name}: two launches on the same input differ")
         worst = max(worst, err_lv, err_t)
 
     # the white step's pre-array, and the latent step's (29 panels, the last
-    # of 2 rows)
+    # of 2 rows), against their Grams and against cuSOLVER's QR's time
     for rows, cols, tol in ((2050, 3586, 1e-12), (3586, 6658, 1e-13)):
         W = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
         L = tq.blocked_lq_l(W)
@@ -153,25 +212,53 @@ def phase_kernel(tq, dev):
               f" (tol {tol:.0e})", flush=True)
         check(rel <= tol, f"blocked LQ {rows} x {cols}: Gram mismatch")
         check(torch.all(torch.triu(L, 1) == 0).item(), "blocked LQ factor not lower triangular")
+        Wt = W.T.contiguous()
+        qr = [cuda_ms(lambda: torch.linalg.qr(Wt, mode="r"), 3)]
+        sweep = [cuda_ms(lambda: tq.blocked_lq_l(W), 3) for _ in range(2)]
+        qr.append(cuda_ms(lambda: torch.linalg.qr(Wt, mode="r"), 3))
+        print(f"LQ sweep {rows} x {cols} f64: blocked_lq_l {sweep} ms, "
+              f"torch.linalg.qr(W^T, mode='r') {qr} ms", flush=True)
 
-    # times at the step's panel shape, in turns: plain, kernel, kernel, plain
-    x = torch.tensor(rng.standard_normal((128, 3586)), device=dev)
-    plain = [cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3)]
-    kernel = [cuda_ms(lambda: tq.panel_lq(x, 0), 20) for _ in range(2)]
-    plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
-    ms, plain_ms = sum(kernel) / 2, sum(plain) / 2
-    print(f"panel 128 x 3586 f64: kernel {kernel} ms, plain {plain} ms", flush=True)
-    wide = torch.tensor(rng.standard_normal((128, 6658)), device=dev)
-    wide_plain = [cuda_ms(lambda: tq.panel_lq_reference(wide, 0), 3)]
-    wide_kernel = [cuda_ms(lambda: tq.panel_lq(wide, 0), 20) for _ in range(2)]
-    wide_plain.append(cuda_ms(lambda: tq.panel_lq_reference(wide, 0), 3))
-    print(f"panel 128 x 6658 f64 (latent step): kernel {wide_kernel} ms, plain {wide_plain} ms",
-          flush=True)
-    leaf = torch.tensor(rng.standard_normal((32, 3586)), device=dev)
-    print(f"panel 32 x 3586 f64 (leaf form): kernel "
-          f"{cuda_ms(lambda: tq.panel_lq(leaf, 0), 20)} ms, plain "
-          f"{cuda_ms(lambda: tq.panel_lq_reference(leaf, 0), 3)} ms", flush=True)
-    return worst, ms, plain_ms
+    # the CTA count: the rule's choice against about 32, 66 and 131 CTAs,
+    # each launch shape held against the plain version before it is timed
+    for rows, cols in ((128, 3586), (128, 6658), (128, 1538)):
+        x = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+        lv_ref, tT_ref = tq.panel_lq_reference(x, 0)
+        tol = 1e-12 * x.abs().max().item()
+        rule = tq.panel_lq_launch(rows, cols, 8, num_sms)
+        times = []
+        for ctas in (rule.ctas, 32, 66, num_sms - 1):
+            launch = tq.panel_lq_geometry(rows, cols, ctas, 8)
+            lv, tT = tq._launch_panel_lq(x, 0, launch)
+            err = max((lv - lv_ref).abs().max().item(), (tT - tT_ref).abs().max().item())
+            check(err <= tol, f"panel {rows} x {cols} on {launch.ctas} CTAs: kernel disagrees "
+                  f"with plain version ({err:.3e} > {tol:.3e})")
+            ms = cuda_ms(lambda: tq._launch_panel_lq(x, 0, launch), 20)
+            times.append(f"{launch.ctas} CTAs {ms:.4f} ms (max err {err:.1e})")
+        print(f"panel {rows} x {cols} f64 by CTA count (the rule's first): {', '.join(times)}",
+              flush=True)
+
+    # times at the main path's shapes, in turns: plain, kernel, kernel, plain;
+    # torch.geqrf of the transposed panel (the same reflectors, no T) as the
+    # library yardstick
+    timed = {}
+    for rows, cols, label in ((128, 3586, "step panel"), (128, 6658, "latent step"),
+                              (32, 3586, "leaf form"), (128, 1538, "white init panel")):
+        x = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+        xt = x.T.contiguous()
+        plain = [cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3)]
+        kernel = [cuda_ms(lambda: tq.panel_lq(x, 0), 20) for _ in range(2)]
+        plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
+        library = cuda_ms(lambda: torch.geqrf(xt), 20)
+        ms = sum(kernel) / 2
+        bound_ms, bound_by = panel_bound(rows, cols, 0, torch.float64)
+        launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
+        print(f"panel {rows} x {cols} f64 ({label}): kernel {kernel} ms, plain {plain} ms, "
+              f"torch.geqrf {library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+              f"kernel at {bound_ms / ms:.2%} of it; {launch.ctas} CTAs", flush=True)
+        timed[(rows, cols)] = dict(ms=ms, plain_ms=sum(plain) / 2, library_ms=library,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=worst, **timed[(128, 3586)])
 
 
 def phase_gram(tgram, dev):
@@ -204,9 +291,13 @@ def phase_gram(tgram, dev):
         p = [cuda_ms(plain, 20)]
         k = [cuda_ms(kernel, 50) for _ in range(2)]
         p.append(cuda_ms(plain, 20))
-        print(f"gram {n} x {n} f64: kernel {k} ms, plain {p} ms", flush=True)
-        times[n] = (sum(k) / 2, sum(p) / 2)
-    return worst, *times[512]
+        bound_ms, bound_by = gram_bound(n, n, 1, torch.float64)
+        print(f"gram {n} x {n} f64: kernel {k} ms, plain {p} ms; bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}), kernel at {bound_ms / (sum(k) / 2):.2%} of it; no single "
+              f"PyTorch call computes it", flush=True)
+        times[n] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=worst, **times[512])
 
 
 def phase_leaf(tq, dev):
@@ -250,13 +341,18 @@ def phase_leaf(tq, dev):
     p = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
     k = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
     p.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
-    print(f"leaf 3586 x 32 f64: kernel {k} ms, plain {p} ms", flush=True)
+    library = cuda_ms(lambda: torch.geqrf(x), 20)
+    bound_ms, bound_by = leaf_bound(3586, 32, torch.float64)
+    print(f"leaf 3586 x 32 f64: kernel {k} ms, plain {p} ms, torch.geqrf {library:.4f} ms; "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}), kernel at "
+          f"{bound_ms / (sum(k) / 2):.2%} of it", flush=True)
     qr = [cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3)]
     sweep = [cuda_ms(lambda: tq.blocked_qr_r(A), 3) for _ in range(2)]
     qr.append(cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3))
     print(f"R-form sweep 3586 x 2050 f64: blocked_qr_r {sweep} ms, "
           f"torch.linalg.qr(mode='r') {qr} ms", flush=True)
-    return worst, sum(k) / 2, sum(p) / 2
+    return dict(max_abs_err=worst, ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=library,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 class Launches:
@@ -603,7 +699,7 @@ def main():
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
 
     records = []
-    for name, replaces, (worst, ms, plain_ms) in (
+    for name, replaces, measured in (
         ("panel_lq", "pnmol_tpu/ops/qr_householder.py:535", panel),
         ("gram_radial", "pnmol_tpu/ops/pallas_gram.py:51", gram),
         ("leaf_qr", "pnmol_tpu/ops/qr_householder.py:75", leaf),
@@ -614,9 +710,8 @@ def main():
             "source": f"pnmol_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": launches.totals[name],
-            "max_abs_err": worst,
-            "ms": ms,
-            "plain_ms": plain_ms,
+            **{key: measured[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
         })
     print(json.dumps({"kernels": records}))
     print(card_line)

@@ -41,15 +41,16 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` into a shared library (once per source).
+def build(name: str, defines: tuple = ()) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` into a shared library (once per source and
+    ``defines``, macros passed to ``nvcc`` as ``-D<define>``).
 
     Returns the library's path. Raises if ``nvcc`` is missing or the compile
     fails.
     """
-    source_path = _CSRC / f"{name}.cu"
-    source = source_path.read_bytes()
-    digest = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    source = _CSRC / f"{name}.cu"
+    flags = (*_NVCC_FLAGS, *(f"-D{define}" for define in defines))
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
     out_dir = _BUILD_DIR / f"{name}-{digest[:16]}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
@@ -59,7 +60,7 @@ def build(name: str) -> pathlib.Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source_path)],
+            [_nvcc(), *flags, "-o", tmp, str(source)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:

@@ -31,14 +31,17 @@ tensor they launch their kernels (built with ``nvcc`` from
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from pnmol_tpu_torch.ops import cuda_build
 
-# ctypes types of the panel kernel's own arguments: slab, lv, tT, scratch
-# (device pointers), rows, cols, off
-_PANEL_LQ_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+# ctypes types of the panel kernel's own arguments: slab, lv, tT, scratch,
+# barrier count (device pointers), rows, cols, off, ctas, width, registers
+_PANEL_LQ_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
+# dynamic shared memory one block may use on Hopper (227 KB)
+SHARED_BYTES_PER_CTA = 232448
 # the leaf kernel's: slab, vr, t (device pointers), rows, cols
 _LEAF_QR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
 # most columns one leaf-kernel launch takes (one per lane of a warp)
@@ -91,30 +94,106 @@ def panel_lq_reference(slab, off):
     return lv, tT
 
 
+# the panel kernel's launch rule: about this many columns per column CTA,
+# and at least this many CTAs (measured on an H100, see PERF.md)
+PANEL_COLS_PER_CTA = 120
+PANEL_MIN_CTAS = 32
+# a column CTA keeps its chunk in registers if it has at most 128 rows of
+# 128 columns (4 x 4 values a thread), else in LV in global memory
+PANEL_REGISTER_ROWS = PANEL_REGISTER_WIDTH = 128
+
+
+class PanelLaunch(NamedTuple):
+    """How one panel-kernel launch splits a ``(rows, cols)`` panel: ``ctas``
+    cooperative column CTAs of ``width`` consecutive columns (the last may
+    be narrower; one more CTA forms T^T), whether each CTA keeps its chunk
+    in ``registers`` (else in LV), and the dynamic ``shared_bytes`` of each
+    CTA."""
+
+    ctas: int
+    width: int
+    registers: bool
+    shared_bytes: int
+
+
+def panel_lq_shared_bytes(rows, width, registers, itemsize):
+    """Dynamic shared memory of one CTA, as ``csrc/panel_lq.cu`` sizes it:
+    a column CTA's rows k and k + 1 (chunk in ``registers``), v, tau s, q, a
+    and 1024 partial sums of q; the T^T CTA's T^T (row stride ``rows + 1``)
+    and one z row."""
+    loop = (2 * width if registers else 0) + width + 3 * rows + 1024
+    return max(loop, rows * (rows + 2)) * itemsize
+
+
+def panel_lq_geometry(rows, cols, ctas, itemsize):
+    """The launch shape of one panel on about ``ctas`` column CTAs (see
+    :class:`PanelLaunch`): the count is rounded so that every CTA holds at
+    least one column, and the chunk goes to registers where it fits."""
+    ctas = max(1, min(ctas, cols))
+    width = -(-cols // ctas)
+    registers = rows <= PANEL_REGISTER_ROWS and width <= PANEL_REGISTER_WIDTH
+    return PanelLaunch(-(-cols // width), width, registers,
+                       panel_lq_shared_bytes(rows, width, registers, itemsize))
+
+
+def panel_lq_launch(rows, cols, itemsize, num_sms):
+    """The launch shape the wrapper uses for one panel.
+
+    The rule: about ``PANEL_COLS_PER_CTA`` columns per CTA in steps of 8
+    CTAs, at least ``PANEL_MIN_CTAS`` CTAs and at most ``num_sms - 1`` (the
+    T^T CTA takes the last SM). Every CTA sums all CTAs' partials each
+    reflector, so more CTAs cost more L2 reads; fewer cost longer passes
+    over each chunk.
+    """
+    ctas = max(PANEL_MIN_CTAS, 8 * -(-cols // (8 * PANEL_COLS_PER_CTA)))
+    return panel_lq_geometry(rows, cols, min(ctas, num_sms - 1), itemsize)
+
+
 def panel_lq(slab, off):
     """Householder LQ of one wide panel (see :func:`panel_lq_reference`).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel of
-    ``csrc/panel_lq.cu`` on the current stream (no synchronization) and add
-    one to ``panel_lq.launches``; anything the kernel does not take raises.
+    ``csrc/panel_lq.cu`` on the current stream (no synchronization), with
+    the shape of :func:`panel_lq_launch`, and add one to
+    ``panel_lq.launches``; anything the kernel does not take raises.
     """
     if slab.device.type == "cpu":
         return panel_lq_reference(slab, off)
+    _check_panel(slab, off)
+    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+    rows, cols = slab.shape
+    return _launch_panel_lq(slab, off, panel_lq_launch(rows, cols, slab.element_size(), num_sms))
+
+
+def _check_panel(slab, off):
     cuda_build.check_input("panel_lq", slab)
     rows, cols = slab.shape
-    off = int(off)
     if rows < 1 or off < 0 or rows > cols - off:
         raise ValueError(
             f"panel_lq: need 1 <= rows <= cols - off, got rows={rows}, "
             f"cols={cols}, off={off}"
         )
+
+
+def _launch_panel_lq(slab, off, launch):
+    """Launch the panel kernel on a CUDA ``slab`` with the shape ``launch``
+    (:func:`panel_lq`'s, or another CTA count's for timing) and add one to
+    ``panel_lq.launches``; raise what the kernel does not take."""
+    off = int(off)
+    _check_panel(slab, off)
+    rows, cols = slab.shape
+    if launch.shared_bytes > SHARED_BYTES_PER_CTA:
+        raise ValueError(f"panel_lq: a {rows} x {cols} panel needs {launch.shared_bytes} "
+                         f"bytes of shared memory per CTA, more than {SHARED_BYTES_PER_CTA}")
     lv = torch.empty_like(slab)
     tT = torch.empty((rows, rows), dtype=slab.dtype, device=slab.device)
-    scratch = torch.empty((rows,), dtype=slab.dtype, device=slab.device)
+    scratch = torch.empty(((2 * launch.ctas + 3 + rows) * rows,), dtype=slab.dtype,
+                          device=slab.device)
+    count = torch.empty((1,), dtype=torch.int32, device=slab.device)
     cuda_build.launch(
         "panel_lq", _PANEL_LQ_ARGS, slab,
-        slab.data_ptr(), lv.data_ptr(), tT.data_ptr(), scratch.data_ptr(),
-        rows, cols, off,
+        slab.data_ptr(), lv.data_ptr(), tT.data_ptr(), scratch.data_ptr(), count.data_ptr(),
+        rows, cols, off, launch.ctas, launch.width, int(launch.registers),
     )
     panel_lq.launches += 1
     return lv, tT

@@ -36,9 +36,12 @@ def cuda():
     "rows, cols, off, zero_rows",
     [(128, 3586, 0, ()), (128, 600, 40, ()), (32, 3586, 0, ()),
      (128, 1538, 0, range(2, 128)), (2, 1538, 0, ()), (128, 6658, 0, ()), (2, 6658, 0, ()),
-     (2, 3074, 0, ())],
+     (2, 3074, 0, ()), (128, 6658, 40, ()), (128, 1538, 0, range(128)), (128, 40000, 0, ()),
+     (128, 20000, 3, ()), (136, 3586, 5, ())],
     ids=["step-panel", "offset", "leaf-form", "ragged-zero-rows", "two-rows",
-         "latent-step-panel", "latent-two-rows", "latent-last-panel"],
+         "latent-step-panel", "latent-two-rows", "latent-last-panel", "latent-step-offset",
+         "zero-panel", "chunk-in-global-memory", "chunk-in-global-memory-offset",
+         "rows-above-128"],
 )
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_matches_the_plain_version(cuda, rows, cols, off, zero_rows, dtype):
@@ -55,6 +58,48 @@ def test_kernel_matches_the_plain_version(cuda, rows, cols, off, zero_rows, dtyp
     tol = (1e-12 if dtype == torch.float64 else 1e-4) * np.abs(slab).max()
     assert (lv - lv_ref).abs().max().item() <= tol
     assert (tT - tT_ref).abs().max().item() <= tol
+
+
+def test_two_launches_give_the_same_bits(cuda):
+    """The cross-CTA sums run in a fixed order, without float atomics."""
+    x = torch.tensor(np.random.default_rng(5).standard_normal((128, 6658)), device=cuda)
+    lv, tT = tq.panel_lq(x, 0)
+    lv2, tT2 = tq.panel_lq(x, 0)
+    assert torch.equal(lv, lv2) and torch.equal(tT, tT2)
+
+
+def _rule_cta_counts():
+    """One panel (the widest) for each CTA count the launch rule picks on the
+    N = 512 white, latent and Lotka-Volterra sweeps of a 132-SM card."""
+    by_ctas = {}
+    for rows, cols in ((1538, 1538), (2050, 3586), (2562, 2562), (3586, 6658),
+                       (1540, 1540), (2052, 3588)):
+        for i in range(0, rows, 128):
+            panel = (min(128, rows - i), cols - i)
+            ctas = tq.panel_lq_launch(*panel, 8, 132).ctas
+            by_ctas[ctas] = max(by_ctas.get(ctas, panel), panel, key=lambda p: p[1])
+    return sorted(by_ctas.items())
+
+
+@pytest.mark.parametrize("ctas, panel", _rule_cta_counts(), ids=lambda v: str(v))
+def test_kernel_at_each_cta_count_of_the_rule(cuda, ctas, panel):
+    rows, cols = panel
+    x = torch.tensor(np.random.default_rng(ctas).standard_normal(panel), device=cuda)
+    assert tq.panel_lq_launch(rows, cols, 8, 132).ctas == ctas
+    lv, tT = tq.panel_lq(x, 0)
+    lv_ref, tT_ref = tq.panel_lq_reference(x, 0)
+    tol = 1e-12 * x.abs().max().item()
+    assert (lv - lv_ref).abs().max().item() <= tol
+    assert (tT - tT_ref).abs().max().item() <= tol
+
+
+def test_panel_too_tall_for_the_tt_cta_raises(cuda):
+    """T^T of 200 rows (320 KB in f64) does not fit one CTA's shared memory."""
+    x = torch.zeros((200, 600), dtype=torch.float64, device=cuda)
+    before = tq.panel_lq.launches
+    with pytest.raises(ValueError, match="bytes of shared memory per CTA"):
+        tq.panel_lq(x, 0)
+    assert tq.panel_lq.launches == before
 
 
 def test_blocked_sweep_matches_the_gram(cuda):

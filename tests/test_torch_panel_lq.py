@@ -67,14 +67,16 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert torch.equal(lv, lv_r) and torch.equal(tT, tT_r)
 
 
-def test_missing_nvcc_raises(monkeypatch, tmp_path):
-    """No fallback: without nvcc the kernel build raises."""
+@pytest.mark.parametrize("defines", [(), ("PANEL_LQ_PHASES",)], ids=["kernel", "phase-stamps"])
+def test_missing_nvcc_raises(monkeypatch, tmp_path, defines):
+    """No fallback: without nvcc the kernel build raises (also the build
+    with the phase stamps of ops/panel_lq_phases.py)."""
     import torch.utils.cpp_extension as cpp_extension
 
     monkeypatch.setattr(cuda_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.build("panel_lq")
+        cuda_build.build("panel_lq", defines=defines)
 
 
 def test_wrapper_rejects_other_devices():
@@ -120,3 +122,129 @@ def test_factorization_hooks_match_the_plain_pipeline():
     _, L21, _ = upd.blocks(HACl, ACl, E)
     torch.testing.assert_close(K @ L1, L21, rtol=0, atol=1e-12)
 
+
+# --- the CUDA kernel's dataflow, replayed on the CPU -------------------------
+
+
+def _replay_kernel(slab, off, launch):
+    """``csrc/panel_lq.cu``'s dataflow with torch on the CPU: the columns cut
+    into ``launch.ctas`` chunks of ``launch.width``; per chunk the partials
+    q_j = sum_{l > d} x_j[l] x_k[l] of its lanes, summed over the chunks that
+    hold a lane > d in chunk order; a_j = x_j[d] from the chunk that holds
+    lane d; every row's v_k . x_j as s_j = a_j + inv q_j; the update chunk by
+    chunk; and T^T formed from the stored z rows and taus after the loop."""
+    rows, cols = slab.shape
+    x = slab.clone()
+    chunks = [(p * launch.width, min((p + 1) * launch.width, cols))
+              for p in range(launch.ctas)]
+
+    def partials(k):
+        d = off + k
+        slots = [x[:, max(c0, d + 1):c1] @ x[k, max(c0, d + 1):c1]
+                 for c0, c1 in chunks if c1 - 1 > d]
+        q = torch.zeros(rows, dtype=x.dtype)
+        for slot in slots:  # the kernel's order: slot by slot
+            q = q + slot
+        return q, x[:, d].clone()
+
+    z = x.new_zeros((rows, rows))
+    taus = x.new_zeros(rows)
+    for k in range(rows):
+        d = off + k
+        q, a = partials(k)
+        alpha = a[k]
+        norm = torch.sqrt(alpha * alpha + q[k])  # the kernel's scalars
+        beta = -norm if alpha >= 0 else norm
+        inv = 1.0 / (alpha - beta) if norm > 0 else torch.zeros((), dtype=x.dtype)
+        tau = (beta - alpha) / beta if norm > 0 else torch.zeros((), dtype=x.dtype)
+        s = a + inv * q
+        z[k, :k] = s[:k]
+        taus[k] = tau
+        for c0, c1 in chunks:
+            if max(c0, d) >= c1:
+                continue  # a chunk left of the diagonal
+            lanes = torch.arange(max(c0, d), c1)
+            v = torch.where(lanes == d, torch.ones((), dtype=x.dtype), x[k, lanes] * inv)
+            x[k + 1:, lanes] -= (tau * s[k + 1:])[:, None] * v
+            x[k, lanes] = torch.where(lanes == d, beta, v)
+    tT = x.new_zeros((rows, rows))
+    for k in range(rows):
+        tT[k, :k] = -taus[k] * (z[k, :k] @ tT[:k, :k])
+        tT[k, k] = taus[k]
+    return x, tT
+
+
+@pytest.mark.parametrize(
+    "rows, cols, off, zero_rows, ctas",
+    [(16, 70, 0, (), 3), (16, 70, 3, (5, 11), 4), (16, 70, 40, (), 6), (16, 64, 0, range(16), 5),
+     (2, 37, 0, (), 4), (2, 37, 3, (1,), 7), (16, 70, 3, (), 1)],
+    ids=["off0-ragged", "off3-zero-rows", "off40-chunks-left-of-diagonal", "zero-panel",
+         "two-rows", "two-rows-off3-zero-row", "one-cta"],
+)
+def test_kernel_dataflow_matches_plain_version_and_jax(rows, cols, off, zero_rows, ctas):
+    slab = _slab(np.random.default_rng(rows + cols + off + ctas), rows, cols, zero_rows)
+    launch = tq.panel_lq_geometry(rows, cols, ctas, 8)
+    assert launch.ctas == ctas
+    lv, tT = _replay_kernel(torch.from_numpy(slab), off, launch)
+    lv_r, tT_r = tq.panel_lq_reference(torch.from_numpy(slab), off)
+    lv_j, tT_j = qh._block_lq(jnp.asarray(slab), off, leaf=min(8, rows), block=rows,
+                              interpret=True)
+    for got, want in ((lv, lv_r), (tT, tT_r), (lv, np.asarray(lv_j)), (tT, np.asarray(tT_j))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=PANEL_TOL)
+    for k in zero_rows:
+        assert tT[k, k].item() == 0.0  # the identity reflector
+
+
+def _sweep_panels(rows, cols, block=128):
+    """(rows, cols) of every panel :func:`blocked_lq_l` launches on a
+    ``(rows, cols)`` matrix."""
+    return [(min(block, rows - i), cols - i) for i in range(0, rows, block)]
+
+
+# the LQ pre-arrays of the N = 512 paths (init, step): white heat, latent
+# heat, and Lotka-Volterra on 256 points
+N512_PRE_ARRAYS = {"white": [(1538, 1538), (2050, 3586)],
+                   "latent": [(2562, 2562), (3586, 6658)],
+                   "lotka-volterra": [(1540, 1540), (2052, 3588)]}
+
+
+@pytest.mark.parametrize("path", sorted(N512_PRE_ARRAYS))
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+def test_launch_rule_covers_every_panel_of_the_n512_sweeps(path, itemsize):
+    panels = [p for shape in N512_PRE_ARRAYS[path] for p in _sweep_panels(*shape)]
+    assert len(panels) == {"white": 13 + 17, "latent": 21 + 29, "lotka-volterra": 13 + 17}[path]
+    for rows, cols in panels:
+        launch = tq.panel_lq_launch(rows, cols, itemsize, 132)
+        assert 1 <= launch.ctas <= 131  # and the T^T CTA: at most 132 SMs
+        covered = np.zeros(cols, dtype=int)
+        for p in range(launch.ctas):
+            lanes = slice(p * launch.width, min((p + 1) * launch.width, cols))
+            assert lanes.start < lanes.stop  # no CTA without a column
+            covered[lanes] += 1
+        assert np.all(covered == 1)
+        assert launch.registers  # every N = 512 panel fits in registers
+        assert launch.width <= tq.PANEL_REGISTER_WIDTH
+        assert launch.shared_bytes <= tq.SHARED_BYTES_PER_CTA
+        assert launch.shared_bytes == tq.panel_lq_shared_bytes(rows, launch.width, True,
+                                                                itemsize)
+
+
+@pytest.mark.parametrize(
+    "rows, cols, registers",
+    [(128, 16000, True), (128, 20000, False), (136, 3586, False), (128, 40000, False)],
+)
+def test_launch_rule_puts_each_chunk_where_it_fits(rows, cols, registers):
+    """In registers up to 128 rows of 128 columns a CTA, else in LV in
+    global memory, where the CTA's shared memory holds no part of it."""
+    launch = tq.panel_lq_launch(rows, cols, 8, 132)
+    assert launch.registers == registers
+    assert launch.shared_bytes <= tq.SHARED_BYTES_PER_CTA
+    loop = (2 * launch.width if registers else 0) + launch.width + 3 * rows + 1024
+    assert launch.shared_bytes == max(loop, rows * (rows + 2)) * 8
+
+
+def test_launch_rule_sizes_the_tt_cta_of_a_tall_panel():
+    """Past about 168 f64 rows the T^T CTA's shared memory is over the limit
+    (the wrapper then raises on a CUDA tensor)."""
+    launch = tq.panel_lq_launch(200, 600, 8, 132)
+    assert launch.shared_bytes == 200 * 202 * 8 > tq.SHARED_BYTES_PER_CTA
