@@ -5,8 +5,11 @@
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the three kernels of ``pnmol_tpu_torch/csrc`` (one
-   ``nvcc`` each, all started together), printing each build's time;
+2. build: compiles the two sources of ``pnmol_tpu_torch/csrc`` (one
+   ``nvcc`` each, both started together), printing each build's time; they
+   hold the three kernels (``panel_lq.cu`` the panel kernel, launched on the
+   wide layout as ``panel_lq`` and on the tall one as ``leaf_qr``;
+   ``gram_radial.cu`` the radial Gram);
 3. kernel: the CUDA panel kernel against its plain PyTorch version on the
    card (f64, random slabs at the solvers' shapes, up to the latent step's
    128 x 6658 panel and its ragged 2-row last panel, and an all-zero panel),
@@ -16,10 +19,16 @@ Phases (any failure exits non-zero; nothing is swallowed):
    choice, about 32, 66 and 131), each launch shape checked against the
    plain version first; and at 128 x 3586, 128 x 6658,
    32 x 3586 and 128 x 1538 the kernel's, plain version's and
-   ``torch.geqrf``'s times beside the bound. Then the radial Gram kernel and the leaf QR kernel
-   against their plain versions (f64 and f32), a full blocked QR of the
-   3586 x 2050 R-form pre-array, and the kernels', plain versions' and
-   library's times beside their bounds;
+   ``torch.geqrf``'s times beside the bound. Then the radial Gram kernel
+   against its plain version (f64 and f32, ragged tiles, dim 1-3) and its
+   times; the leaf launch against its plain version (f64 and f32, from the
+   narrow last leaf to 6658 x 32, 3586 x 128 and the global-memory tier at
+   20000 x 32), each launched twice with bitwise-equal results, and against
+   the panel launch of the transpose; its time by CTA count at 3586 x 32;
+   full blocked QRs of the 3586 x 2050 white and 6658 x 3586 latent R-form
+   pre-arrays at leaf 32 and 128 against their Grams and cuSOLVER's QR;
+   and the kernels', plain versions' and library's times beside their
+   bounds;
 4. golden: the dx = 0.2 heat solve against
    ``tests/golden/heat_trajectories.npz``, through the panel kernel and
    through the R-form hook (leaf kernel);
@@ -30,7 +39,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
    from global collocation (one radial-Gram kernel launch in the setup),
    initialize and 20 steps on the panel-kernel path and on the plain path;
 7. R form: the phase-5 problem through the R-form Householder hook (leaf
-   kernel), initialize and 20 steps, against phase 5's plain run;
+   kernel), initialize and 20 steps at leaf 32 (1300 leaf launches: 65 per
+   step, the init plain) and at leaf 128 (340: 17 per step), each against
+   phase 5's plain run;
 8. latent golden: the dx = 0.2 heat solve through ``LinearLatentForceEK1``
    against the golden's ``latent_mean``/``latent_diffusion``, through the
    panel kernel and through the R-form hook;
@@ -47,7 +58,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
     plain path: equal step and attempt counts, landing on tmax, compared;
 12. semilinear latent: Lotka-Volterra at dx = 0.1 through
     ``SemiLinearLatentForceEK1`` on the panel-kernel path and the plain
-    path, compared.
+    path, compared;
+13. latent R form: the phase-9 problem through the R-form hook, initialize
+    and 20 steps (2260 leaf launches: each 6658 x 3586 step pre-array in
+    28 x 4 + 1 = 113 leaves, the init plain), against phase 9's plain run.
 
 Every path's launch counts are set to 0 just before it and read just after;
 the kernels' ``launches`` are the sums over the paths. The last lines are
@@ -72,8 +86,13 @@ N_POINTS, NU, DT, NUM_STEPS = 512, 2, 1e-3, 20
 EXPECTED_LAUNCHES = 13 + 17 * NUM_STEPS
 # leaf launches of the R-form path at N = 512: the initialization stays on
 # the plain update; each step's pre-array is 3586 x 2050, swept in 32-column
-# leaves (16 blocks of 4 leaves, then one leaf of the last 2 columns)
+# leaves (16 blocks of 4 leaves, then one leaf of the last 2 columns), or in
+# 128-column leaves (one per block: 16, then 1)
 EXPECTED_LEAF_LAUNCHES = -(-2050 // 32) * NUM_STEPS
+EXPECTED_LEAF128_LAUNCHES = -(-2050 // 128) * NUM_STEPS
+# the latent R form: each step's 6658 x 3586 pre-array in 28 blocks of 4
+# leaves, then one leaf of the last 2 columns
+EXPECTED_LATENT_LEAF_LAUNCHES = (28 * 4 + 1) * NUM_STEPS
 # the latent solver at N = 512 (m = 514 measurement rows): the init LQ has
 # m + 4N = 2562 rows (21 panels), each step's m + 6N = 3586 (29 panels)
 EXPECTED_LATENT_LAUNCHES = 21 + 29 * NUM_STEPS
@@ -84,7 +103,8 @@ EXPECTED_LV_LAUNCHES = 13 + 17 * NUM_STEPS
 # the adaptive run: 20 accepted steps of 41 attempts on the CPU (JAX and the
 # port alike); every attempt factorizes the white step's pre-array
 ADAPTIVE_TMAX = 0.1
-KERNELS = ("panel_lq", "gram_radial", "leaf_qr")
+# the source of each kernel: the leaf QR is the panel kernel on the tall layout
+SOURCES = {"panel_lq": "panel_lq", "gram_radial": "gram_radial", "leaf_qr": "panel_lq"}
 
 
 def fail(message):
@@ -117,6 +137,20 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def issue_ms(fn, reps):
+    """The host's time to issue one call (no synchronization inside it), the
+    least of ``reps`` calls each started on an idle card: about the call's
+    device time where the host is what holds it back."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return min(times)
 
 
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet, dense, at
@@ -261,11 +295,12 @@ def phase_kernel(tq, dev):
     return dict(max_abs_err=worst, **timed[(128, 3586)])
 
 
-def phase_gram(tgram, dev):
+def phase_gram(tgram, cuda_build, dev):
     """The radial Gram kernel against its plain version, and both times."""
     rng = np.random.default_rng(1)
     worst = 0.0
-    for n, m, dim in ((512, 512, 1), (1000, 777, 2)):
+    # ragged tiles (32 x 128), an odd m (no 16-byte row starts) and dim 3
+    for n, m, dim in ((512, 512, 1), (1000, 777, 2), (33, 131, 2), (100, 258, 3)):
         for dtype in (torch.float64, torch.float32):
             x = torch.tensor(rng.uniform(size=(n, dim)), dtype=dtype, device=dev)
             y = torch.tensor(rng.uniform(size=(m, dim)), dtype=dtype, device=dev)
@@ -291,68 +326,136 @@ def phase_gram(tgram, dev):
         p = [cuda_ms(plain, 20)]
         k = [cuda_ms(kernel, 50) for _ in range(2)]
         p.append(cuda_ms(plain, 20))
+        # the launch alone, on clouds the wrapper has centred
+        xc = x - x.mean(dim=0, keepdim=True)
+        out = torch.empty((n, n), dtype=x.dtype, device=dev)
+        launch_only = cuda_ms(lambda: cuda_build.launch(
+            "gram_radial", "gram_radial", tgram._GRAM_ARGS, xc, xc.data_ptr(), xc.data_ptr(),
+            out.data_ptr(), n, n, 1, 0, 5.0, 1.0), 50)
         bound_ms, bound_by = gram_bound(n, n, 1, torch.float64)
-        print(f"gram {n} x {n} f64: kernel {k} ms, plain {p} ms; bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}), kernel at {bound_ms / (sum(k) / 2):.2%} of it; no single "
-              f"PyTorch call computes it", flush=True)
+        print(f"gram {n} x {n} f64: kernel {k} ms (the launch alone {launch_only:.4f} ms), "
+              f"plain {p} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), kernel at "
+              f"{bound_ms / (sum(k) / 2):.2%} of it (the launch alone at "
+              f"{bound_ms / launch_only:.2%}); no single PyTorch call computes it", flush=True)
         times[n] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=None,
                         bound_ms=bound_ms, bound_by=bound_by)
     return dict(max_abs_err=worst, **times[512])
 
 
 def phase_leaf(tq, dev):
-    """The leaf QR kernel against its plain version, the full R-form sweep,
-    and their times against the plain version and cuSOLVER."""
+    """The leaf launch (the panel kernel on the tall layout) against its
+    plain version, the full R-form sweeps, and their times against the
+    plain version and cuSOLVER."""
     rng = np.random.default_rng(2)
-    cases = [("3586 x 32 (first leaf of a step)", 3586, ()),
-             ("2050 x 32 (last full leaf)", 2050, ()),
-             ("40 x 32", 40, ()),
-             ("2050 x 32, columns 3 and 17 zero", 2050, (3, 17))]
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [("3586 x 32 (first leaf of a step)", 3586, 32, ()),
+             ("2050 x 32 (last full leaf)", 2050, 32, ()),
+             ("40 x 32", 40, 32, ()),
+             ("2050 x 32, columns 3 and 17 zero", 2050, 32, (3, 17)),
+             ("6658 x 32 (first leaf of a latent step)", 6658, 32, ()),
+             ("3586 x 128 (leaf 128)", 3586, 128, ()),
+             ("20000 x 32 (chunks in global memory)", 20000, 32, ()),
+             ("300 x 2 (narrow last leaf)", 300, 2, ())]
     worst = 0.0
-    for name, rows, zero_cols in cases:
-        slab = rng.standard_normal((rows, 32))
+    for name, rows, cols, zero_cols in cases:
+        slab = rng.standard_normal((rows, cols))
         slab[:, list(zero_cols)] = 0.0
+        launch = tq.leaf_qr_launch(rows, cols, 8, num_sms)
         for dtype in (torch.float64, torch.float32):
             x = torch.tensor(slab, dtype=dtype, device=dev)
             vr, t = tq.leaf_qr(x)
+            vr2, t2 = tq.leaf_qr(x)
             torch.cuda.synchronize()
+            same = torch.equal(vr, vr2) and torch.equal(t, t2)
             vr_ref, t_ref = tq.leaf_qr_reference(x)
             err = max((vr - vr_ref).abs().max().item(), (t - t_ref).abs().max().item())
             # f64: rounding of one QR, against the slab's scale; f32: against R's
             tol = (1e-12 * np.abs(slab).max() if dtype == torch.float64
                    else 1e-4 * vr_ref.abs().max().item())
             print(f"leaf kernel vs plain, {name} {dtype}: max|dVR|, |dT| {err:.3e} "
-                  f"(tol {tol:.3e})", flush=True)
+                  f"(tol {tol:.3e}); {launch.ctas} CTAs of {launch.width} rows in "
+                  f"{'registers' if launch.registers else 'global memory'}; two launches "
+                  f"bitwise equal: {same}", flush=True)
             check(np.isfinite(err) and err <= tol, f"leaf {name}: kernel disagrees")
+            check(same, f"leaf {name}: two launches on the same input differ")
             check(all(t[k, k].item() == 0.0 for k in zero_cols), f"leaf {name}: tau != 0")
             if dtype == torch.float64:
                 worst = max(worst, err)
 
-    A = torch.tensor(rng.standard_normal((3586, 2050)), device=dev)
-    R = tq.blocked_qr_r(A)
-    G = A.T @ A
-    rel = ((R.T @ R - G).abs().max() / G.abs().max()).item()
-    print(f"blocked_qr_r 3586 x 2050: max|R^T R - A^T A| / max|A^T A| = {rel:.3e}", flush=True)
-    check(rel <= 1e-12, "blocked QR Gram mismatch")
-    check(torch.all(torch.tril(R, -1) == 0).item(), "blocked QR factor not upper triangular")
-
-    # times, f64, in turns: plain, kernel, kernel, plain
+    # the tall launch against the panel launch of the transpose (the same
+    # launch shape and arithmetic)
     x = torch.tensor(rng.standard_normal((3586, 32)), device=dev)
-    p = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
-    k = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
-    p.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
-    library = cuda_ms(lambda: torch.geqrf(x), 20)
-    bound_ms, bound_by = leaf_bound(3586, 32, torch.float64)
-    print(f"leaf 3586 x 32 f64: kernel {k} ms, plain {p} ms, torch.geqrf {library:.4f} ms; "
-          f"bound {bound_ms * 1e3:.2f} us ({bound_by}), kernel at "
-          f"{bound_ms / (sum(k) / 2):.2%} of it", flush=True)
-    qr = [cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3)]
-    sweep = [cuda_ms(lambda: tq.blocked_qr_r(A), 3) for _ in range(2)]
-    qr.append(cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3))
-    print(f"R-form sweep 3586 x 2050 f64: blocked_qr_r {sweep} ms, "
-          f"torch.linalg.qr(mode='r') {qr} ms", flush=True)
-    return dict(max_abs_err=worst, ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=library,
-                bound_ms=bound_ms, bound_by=bound_by)
+    vr, t = tq.leaf_qr(x)
+    lv, tT = tq.panel_lq(x.T.contiguous(), 0)
+    torch.cuda.synchronize()
+    same = torch.equal(vr, lv.T) and torch.equal(t, tT.T)
+    print(f"leaf 3586 x 32 against the panel launch of its transpose: bitwise equal {same}, "
+          f"max diff {max((vr - lv.T).abs().max().item(), (t - tT.T).abs().max().item()):.3e}",
+          flush=True)
+    check(same, "the tall launch differs from the panel launch of the transpose")
+
+    # the CTA count at 3586 x 32: the rule's against about 32, 66 and 131,
+    # each launch shape held against the plain version before it is timed
+    vr_ref, t_ref = tq.leaf_qr_reference(x)
+    tol = 1e-12 * x.abs().max().item()
+    times = []
+    for ctas in (tq.leaf_qr_launch(3586, 32, 8, num_sms).ctas, 32, 66, num_sms - 1):
+        launch = tq.panel_lq_geometry(32, 3586, ctas, 8)
+        vr, t = tq._launch_leaf_qr(x, launch)
+        err = max((vr - vr_ref).abs().max().item(), (t - t_ref).abs().max().item())
+        check(err <= tol, f"leaf 3586 x 32 on {launch.ctas} CTAs: kernel disagrees with plain "
+              f"version ({err:.3e} > {tol:.3e})")
+        ms = cuda_ms(lambda: tq._launch_leaf_qr(x, launch), 20)
+        times.append(f"{launch.ctas} CTAs {ms:.4f} ms (max err {err:.1e})")
+    print(f"leaf 3586 x 32 f64 by CTA count (the rule's first): {', '.join(times)}", flush=True)
+
+    # the full sweeps of the white and latent R-form pre-arrays, at leaf 32
+    # (the default) and 128, against their Grams and cuSOLVER's QR
+    for rows, cols in ((3586, 2050), (6658, 3586)):
+        A = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+        G = A.T @ A
+        for leaf in (32, 128):
+            before = tq.leaf_qr.launches
+            R = tq.blocked_qr_r(A, leaf=leaf)
+            torch.cuda.synchronize()
+            leaves = tq.leaf_qr.launches - before
+            rel = ((R.T @ R - G).abs().max() / G.abs().max()).item()
+            print(f"blocked_qr_r {rows} x {cols} at leaf {leaf}: {leaves} leaf launches, "
+                  f"max|R^T R - A^T A| / max|A^T A| = {rel:.3e} (tol 1e-12)", flush=True)
+            expected = sum(-(-min(128, cols - b) // leaf) for b in range(0, cols, 128))
+            check(leaves == expected, f"blocked QR {rows} x {cols} at leaf {leaf}: {leaves} "
+                  f"leaf launches, not {expected}")
+            check(rel <= 1e-12, f"blocked QR {rows} x {cols} at leaf {leaf}: Gram mismatch")
+            check(torch.all(torch.tril(R, -1) == 0).item(),
+                  "blocked QR factor not upper triangular")
+        qr = [cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3)]
+        sweeps = {leaf: [cuda_ms(lambda: tq.blocked_qr_r(A, leaf=leaf), 3) for _ in range(2)]
+                  for leaf in (32, 128)}
+        qr.append(cuda_ms(lambda: torch.linalg.qr(A, mode="r"), 3))
+        issue = {leaf: issue_ms(lambda: tq.blocked_qr_r(A, leaf=leaf), 3) for leaf in (32, 128)}
+        print(f"R-form sweep {rows} x {cols} f64: blocked_qr_r leaf 32 {sweeps[32]} ms "
+              f"(the host issues it in {issue[32]:.2f} ms), leaf 128 {sweeps[128]} ms "
+              f"({issue[128]:.2f} ms), torch.linalg.qr(mode='r') {qr} ms", flush=True)
+
+    # times, f64, in turns: plain, kernel, kernel, plain; torch.geqrf of the
+    # slab (the same reflectors, no T) as the library yardstick
+    timed = {}
+    for rows, label in ((3586, "first leaf of a white step"), (6658, "of a latent step"),
+                        (20000, "chunks in global memory")):
+        x = torch.tensor(rng.standard_normal((rows, 32)), device=dev)
+        p = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
+        k = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
+        p.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
+        library = cuda_ms(lambda: torch.geqrf(x), 20)
+        bound_ms, bound_by = leaf_bound(rows, 32, torch.float64)
+        launch = tq.leaf_qr_launch(rows, 32, 8, num_sms)
+        print(f"leaf {rows} x 32 f64 ({label}): kernel {k} ms, plain {p} ms, torch.geqrf "
+              f"{library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), kernel at "
+              f"{bound_ms / (sum(k) / 2):.2%} of it; {launch.ctas} CTAs of {launch.width} rows",
+              flush=True)
+        timed[rows] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=library,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=worst, **timed[3586])
 
 
 class Launches:
@@ -547,13 +650,15 @@ def phase_collocation(pt, dev, launches, card_line):
 
 
 def phase_r_form(pt, tq, launches, heat, plain, card_line):
-    """The phase-5 problem through the R-form hook, against phase 5's plain run."""
-    launches.reset()
-    rf = run_solver(heat_solver(pt, tq.make_householder_factorization(),
-                                steprule=pt.odetools.step.Constant(DT)), heat)
-    launches.read(f"N={N_POINTS} R-form path", {"leaf_qr": EXPECTED_LEAF_LAUNCHES})
-    report_run(f"N={N_POINTS} R-form hook, leaf kernel", rf, card_line)
-    compare_runs("R-form path vs plain path", rf, plain)
+    """The phase-5 problem through the R-form hook at leaf 32 (the default)
+    and at leaf 128, each against phase 5's plain run."""
+    for leaf, expected in ((32, EXPECTED_LEAF_LAUNCHES), (128, EXPECTED_LEAF128_LAUNCHES)):
+        launches.reset()
+        rf = run_solver(heat_solver(pt, tq.make_householder_factorization(leaf=leaf),
+                                    steprule=pt.odetools.step.Constant(DT)), heat)
+        launches.read(f"N={N_POINTS} R-form path at leaf {leaf}", {"leaf_qr": expected})
+        report_run(f"N={N_POINTS} R-form hook at leaf {leaf}, leaf kernel", rf, card_line)
+        compare_runs(f"R-form path at leaf {leaf} vs plain path", rf, plain)
 
 
 def phase_latent(pt, launches, heat, card_line):
@@ -571,6 +676,19 @@ def phase_latent(pt, launches, heat, card_line):
     report_run(f"N={N_POINTS} latent, plain torch.linalg.qr", runs[None], card_line, d=N_POINTS)
     compare_runs("latent: kernel path vs plain path", runs["householder"], runs[None],
                  d=N_POINTS)
+    return runs[None]
+
+
+def phase_latent_r_form(pt, tq, launches, heat, plain, card_line):
+    """The phase-9 problem through the R-form hook (the tall pre-array is
+    6658 x 3586), against phase 9's plain run."""
+    launches.reset()
+    rf = run_solver(heat_solver(pt, tq.make_householder_factorization(),
+                                cls=pt.latent.LinearLatentForceEK1,
+                                steprule=pt.odetools.step.Constant(DT)), heat)
+    launches.read(f"N={N_POINTS} latent R-form path", {"leaf_qr": EXPECTED_LATENT_LEAF_LAUNCHES})
+    report_run(f"N={N_POINTS} latent, R-form hook, leaf kernel", rf, card_line, d=N_POINTS)
+    compare_runs("latent: R-form path vs plain path", rf, plain, d=N_POINTS)
 
 
 def phase_lotka_volterra(pt, dev, launches, card_line):
@@ -650,8 +768,9 @@ def phase_build(cuda_build):
         lib = cuda_build.build(name)
         return lib, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        futures = {name: pool.submit(timed, name) for name in KERNELS}
+    sources = sorted(set(SOURCES.values()))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        futures = {name: pool.submit(timed, name) for name in sources}
     for future in futures.values():
         lib, seconds = future.result()
         print(f"build: {lib.name} in {seconds:.2f} s", flush=True)
@@ -674,7 +793,7 @@ def main():
     phase_build(cuda_build)
 
     panel = phase_kernel(tq, dev)
-    gram = phase_gram(tgram, dev)
+    gram = phase_gram(tgram, cuda_build, dev)
     leaf = phase_leaf(tq, dev)
     launches = Launches(wrappers)
     white, latent = pt.white.LinearWhiteNoiseEK1, pt.latent.LinearLatentForceEK1
@@ -692,10 +811,11 @@ def main():
                  "the panel kernel")
     phase_golden(pt, dev, launches, latent, "latent", tq.make_householder_factorization(),
                  {"leaf_qr": 10}, "the R-form hook (leaf kernel)")
-    phase_latent(pt, launches, heat, card_line)
+    latent_plain = phase_latent(pt, launches, heat, card_line)
     phase_lotka_volterra(pt, dev, launches, card_line)
     phase_adaptive(pt, dev, launches, card_line)
     phase_semilinear_latent(pt, dev, launches, card_line)
+    phase_latent_r_form(pt, tq, launches, heat, latent_plain, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
 
     records = []
@@ -707,7 +827,7 @@ def main():
         records.append({
             "name": name,
             "route": "cuda",
-            "source": f"pnmol_tpu_torch/csrc/{name}.cu",
+            "source": f"pnmol_tpu_torch/csrc/{SOURCES[name]}.cu",
             "replaces": replaces,
             "launches": launches.totals[name],
             **{key: measured[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -21,7 +21,8 @@ Two further paths carry the other two kernels: global collocation
 (``discretize.collocation_global`` and ``scheme="collocation"``), whose
 radial Gram runs ``csrc/gram_radial.cu`` on the GPU at N >= 512, and the
 R-form step hook ``ops.qr_householder.make_householder_factorization()``,
-whose tall blocked QR runs ``csrc/leaf_qr.cu``.
+whose tall blocked QR runs the panel kernel of ``csrc/panel_lq.cu`` on the
+tall layout.
 
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.

@@ -1,7 +1,8 @@
 // Householder LQ of one wide panel, spread over the SMs: the CUDA counterpart
 // of the TPU panel kernels `_block_lq_kernel`
 // (pnmol_tpu/ops/qr_householder.py:535) and `_leaf_lq_kernel`
-// (pnmol_tpu/ops/qr_householder.py:350).
+// (pnmol_tpu/ops/qr_householder.py:350), and, launched on the tall layout,
+// of the TPU leaf kernel `_leaf_kernel` (pnmol_tpu/ops/qr_householder.py:75).
 //
 // Contract (identical to the TPU kernels'): given a row-major slab
 // (rows, cols) and a diagonal offset `off` (rows <= cols - off), reflector k
@@ -18,6 +19,16 @@
 // loop and leaf merge exist for Mosaic's VMEM tiling): each reflector
 // updates every later row, and row k of T^T is -tau_k (V_{<k} v_k)^T T^T.
 //
+// The tall layout (entry points leaf_qr_*): a Householder QR of a row-major
+// tall slab A (rows >= leaf <= 128 columns), with the TPU leaf kernel's
+// numerics, is exactly the LQ above of A^T at off = 0, transposed: the same
+// reflectors, beta and tau, vr = lv^T and T = (T^T)^T. So one kernel serves
+// both, with a compile-time layout: on the tall layout LQ row j is column j
+// of A and LQ lane l is row l of A, a column CTA's chunk of `width` lanes is
+// `width` consecutive rows of A (one contiguous span in memory), and the
+// T^T CTA writes T. Only the chunk's load and store and that write differ;
+// the exchange and the arithmetic are the same code.
+//
 // The bound on the H100, for an f64 128 x 3586 panel:
 //   - operations: about 3 * cols * rows^2 = 175 MFLOP of FP64, 2.6 us at the
 //     card's 67 TFLOP/s FP64 peak (its tensor cores, at full FP64 precision);
@@ -30,10 +41,11 @@
 // reflector's step between two barriers short:
 //   - P cooperative column CTAs (one per SM, co-resident by
 //     cudaLaunchCooperativeKernel; P from the wrapper's rule, 32 on 3586
-//     columns and 56 on 6658) each own a chunk of `width` consecutive
-//     columns of every row. The chunk is loaded once, worked on in place for
-//     all reflectors and written once, so the panel crosses device memory
-//     twice instead of once per reflector. It lives in registers where it
+//     columns and 56 on 6658; the same on a tall slab's rows) each own a
+//     chunk of `width` consecutive columns of every row. The chunk is loaded
+//     once, worked on in place for all reflectors and written once, so the
+//     panel crosses device memory twice instead of once per reflector. It
+//     lives in registers where it
 //     fits (rows <= 128, width <= 128: 4 x 4 values a thread; a pass then
 //     reads only rows k and k + 1 from shared memory), which every panel of
 //     the solvers' sweeps does; a taller or wider panel keeps it in `lv` in
@@ -47,7 +59,7 @@
 //     j < k (rows above k hold reflector tails at lanes >= d). One pass over
 //     the chunk then scales row k into the reflector tail, applies the rank-1
 //     update to the rows below and accumulates the partials of reflector
-//     k + 1 on the updated values (the trick of leaf_qr.cu).
+//     k + 1 on the updated values.
 //   - The cross-CTA sum is deterministic: fixed slots, a fixed order, no
 //     float atomics, so two launches give the same bits. Every CTA sums all
 //     P slots of every row itself (P * rows values from L2, loads coalesced
@@ -190,17 +202,30 @@ __device__ void reduce_rows(const T* slots, const Geometry& g, int d, T* out, T*
   }
 }
 
+// Strides of the chunk's element (row j, lane c) in memory: the wide layout
+// keeps a row's lanes contiguous, the tall one a lane's rows.
+template <bool kTall>
+__device__ __forceinline__ size_t row_stride(const Geometry& g) {
+  return kTall ? 1 : static_cast<size_t>(g.cols);
+}
+template <bool kTall>
+__device__ __forceinline__ size_t lane_stride(const Geometry& g) {
+  return kTall ? static_cast<size_t>(g.rows) : 1;
+}
+
 // Update the rows below `next` with the current reflector (vbuf, cbuf) if
 // `update`, and write reflector `next`'s partials: the slot of this CTA
 // (q_j over lanes > dn of this chunk) and, from the CTA that owns lane dn,
 // a_j = x_j[dn]. Lanes below `cs` are left of the current diagonal. A warp
-// takes kGroup rows at once.
-template <typename T>
-__device__ void pass_partials(T* x, int ld, int c0, int wp, int cs, int next, bool update,
+// takes kGroup rows at once. The chunk `x` is in global memory, in the
+// layout of kTall.
+template <bool kTall, typename T>
+__device__ void pass_partials(T* x, int c0, int wp, int cs, int next, bool update,
                               const T* vbuf, const T* cbuf, T* slot, T* a_next,
                               const Geometry& g, int warp, int lane) {
   const int dn = g.off + next;
-  const T* xn = x + static_cast<size_t>(next) * ld;
+  const size_t sj = row_stride<kTall>(g), sc = lane_stride<kTall>(g);
+  const T* xn = x + static_cast<size_t>(next) * sj;
   for (int j0 = warp; j0 < g.rows; j0 += kGroup * kWarps) {
     T* xj[kGroup];
     T cj[kGroup], acc[kGroup];
@@ -211,20 +236,20 @@ __device__ void pass_partials(T* x, int ld, int c0, int wp, int cs, int next, bo
       valid[u] = j < g.rows;
       upd[u] = update && valid[u] && j > next;
       cj[u] = upd[u] ? cbuf[j] : T(0);
-      xj[u] = x + static_cast<size_t>(j) * ld;
+      xj[u] = x + static_cast<size_t>(j) * sj;
       acc[u] = T(0);
     }
     for (int c = cs + lane; c < wp; c += 32) {
-      const T vn = xn[c];
+      const T vn = xn[c * sc];
       const T vc = update ? vbuf[c] : T(0);
       const int l = c0 + c;
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         if (!valid[u]) continue;
-        T v = xj[u][c];
+        T v = xj[u][c * sc];
         if (upd[u]) {
           v -= cj[u] * vc;
-          xj[u][c] = v;
+          xj[u][c * sc] = v;
         }
         if (l > dn) acc[u] += v * vn;
         else if (l == dn) a_next[j0 + u * kWarps] = v;
@@ -279,8 +304,9 @@ __device__ void reg_partials(T (&x)[kGroup][kRegCols], const T* xk, const T* xn,
 // the top of reflector k + 1 (the final one for the last row) has completed.
 // It reads the barrier count but never adds to it, so it is not on the
 // reflector chain. T^T stays in shared memory (row stride rows + 1); the
-// kTtParts lanes that share entry i sum every kTtParts-th term of it.
-template <typename T>
+// kTtParts lanes that share entry i sum every kTtParts-th term of it. The
+// wide layout writes T^T, the tall one its transpose T.
+template <bool kTall, typename T>
 __device__ void form_tt(T* tt, const T* zbuf, const T* taubuf, const unsigned int* count,
                         const Geometry& g, T* smem, int tid, int warp, int lane) {
   const int rows = g.rows;
@@ -306,13 +332,16 @@ __device__ void form_tt(T* tt, const T* zbuf, const T* taubuf, const unsigned in
     }
   }
   __syncthreads();
-  for (int e = tid; e < rows * rows; e += kThreads)
-    tt[e] = tts[static_cast<size_t>(e / rows) * ldt + e % rows];
+  for (int e = tid; e < rows * rows; e += kThreads) {
+    const int r = kTall ? e % rows : e / rows, c = kTall ? e / rows : e % rows;
+    tt[e] = tts[static_cast<size_t>(r) * ldt + c];
+  }
 }
 
 // kRegisters: the chunk lives in registers (the wrapper's rule allows it for
-// rows <= 128 and width <= 32 kRegCols); otherwise in lv.
-template <typename T, bool kRegisters>
+// rows <= 128 and width <= 32 kRegCols); otherwise in lv. kTall: the slab,
+// lv and tt are a tall slab, its vr and T (see the top of the file).
+template <typename T, bool kRegisters, bool kTall>
 __global__ void __launch_bounds__(kThreads, 1)
     panel_lq_kernel(const T* __restrict__ slab, T* lv, T* tt, T* scratch,
                     unsigned int* count, Geometry g) {
@@ -333,15 +362,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* zbuf = a_glob + 2 * rows;
   T* taubuf = zbuf + static_cast<size_t>(rows) * rows;
   if (p == g.ctas) {
-    form_tt(tt, zbuf, taubuf, count, g, smem, tid, warp, lane);
+    form_tt<kTall>(tt, zbuf, taubuf, count, g, smem, tid, warp, lane);
     return;
   }
 
   // the chunk: in registers (xr; rows k and k + 1 by parity in shared
-  // memory) or in lv (x, row stride cols)
+  // memory) or in lv (x); element (j, c) of the chunk is at
+  // j * sj + c * sc from its start, in the slab and in lv alike
   T xr[kGroup][kRegCols];
-  T* const x = kRegisters ? nullptr : lv + c0;
-  const int ld = g.cols;
+  const size_t sj = row_stride<kTall>(g), sc = lane_stride<kTall>(g);
+  const T* const src = slab + c0 * sc;
+  T* const x = kRegisters ? nullptr : lv + c0 * sc;
   T* const rest = kRegisters ? smem + 2 * g.width : smem;
   T* vbuf = rest;            // v_k on this chunk
   T* cbuf = vbuf + g.width;  // tau_k s_j
@@ -358,19 +389,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kRegCols; ++i) {
         const int j = warp + u * kWarps, c = lane + 32 * i;
-        xr[u][i] = j < rows && c < wp ? slab[static_cast<size_t>(j) * g.cols + c0 + c] : T(0);
+        xr[u][i] = j < rows && c < wp ? src[j * sj + c * sc] : T(0);
         if (j == 0 && c < wp) xrow[c] = xr[u][i];
       }
     __syncthreads();
     reg_partials(xr, xrow, xrow, T(0), g.off, c0, wp, max(g.off - c0, 0), 0, false, cbuf,
                  slots + static_cast<size_t>(p) * rows, a_glob, g, warp, lane);
   } else {
-    for (int j = warp; j < rows; j += kWarps)
-      for (int c = lane; c < wp; c += 32)
-        x[static_cast<size_t>(j) * ld + c] = slab[static_cast<size_t>(j) * g.cols + c0 + c];
+    if constexpr (kTall) {  // the chunk is one contiguous span
+      for (size_t e = tid; e < static_cast<size_t>(wp) * rows; e += kThreads) x[e] = src[e];
+    } else {
+      for (int j = warp; j < rows; j += kWarps)
+        for (int c = lane; c < wp; c += 32) x[j * sj + c] = src[j * sj + c];
+    }
     __syncthreads();
-    pass_partials(x, ld, c0, wp, max(g.off - c0, 0), 0, false, vbuf, cbuf,
-                  slots + static_cast<size_t>(p) * rows, a_glob, g, warp, lane);
+    pass_partials<kTall>(x, c0, wp, max(g.off - c0, 0), 0, false, vbuf, cbuf,
+                         slots + static_cast<size_t>(p) * rows, a_glob, g, warp, lane);
   }
 
   for (int k = 0; k < rows; ++k) {
@@ -438,22 +472,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       PHASE(4)
       continue;
     }
-    T* xk = x + static_cast<size_t>(k) * ld;
+    T* xk = x + k * sj;
     for (int c = cs + tid; c < wp; c += kThreads) {
       const bool diag = c0 + c == d;
-      const T v = diag ? T(1) : xk[c] * inv;
+      const T v = diag ? T(1) : xk[c * sc] * inv;
       vbuf[c] = v;
-      xk[c] = diag ? beta : v;
-      if (more) x[static_cast<size_t>(k + 1) * ld + c] -= c_next * v;
+      xk[c * sc] = diag ? beta : v;
+      if (more) xk[sj + c * sc] -= c_next * v;
     }
     __syncthreads();
     PHASE(3)
 
     // --- rows below k + 1 take the update; partials of reflector k + 1 ------
     if (more)
-      pass_partials(x, ld, c0, wp, cs, k + 1, true, vbuf, cbuf,
-                    slots + (static_cast<size_t>(par ^ 1) * g.ctas + p) * rows,
-                    a_glob + (par ^ 1) * rows, g, warp, lane);
+      pass_partials<kTall>(x, c0, wp, cs, k + 1, true, vbuf, cbuf,
+                           slots + (static_cast<size_t>(par ^ 1) * g.ctas + p) * rows,
+                           a_glob + (par ^ 1) * rows, g, warp, lane);
     PHASE(4)
   }
   PHASES_END
@@ -465,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kRegCols; ++i) {
         const int j = warp + u * kWarps, c = lane + 32 * i;
-        if (j < rows && c < wp) lv[static_cast<size_t>(j) * g.cols + c0 + c] = xr[u][i];
+        if (j < rows && c < wp) lv[c0 * sc + j * sj + c * sc] = xr[u][i];
       }
   }
 }
@@ -484,13 +518,13 @@ size_t shared_bytes(int rows, int width, bool registers, size_t item) {
 // raised to the most a block may use, once per device and kernel, and the
 // occupancy (one CTA per SM: 1024 threads of 64 registers fill its register
 // file) does not depend on the bytes below it.
-template <typename T, bool kRegisters>
+template <typename T, bool kRegisters, bool kTall>
 int max_ctas(int device, int* out) {
   constexpr int kDevices = 64;
   static int cached[kDevices] = {0};
   if (device < 0 || device >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (cached[device] == 0) {
-    auto kernel = panel_lq_kernel<T, kRegisters>;
+    auto kernel = panel_lq_kernel<T, kRegisters, kTall>;
     int optin = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err == cudaSuccess)
@@ -505,7 +539,8 @@ int max_ctas(int device, int* out) {
   return 0;
 }
 
-template <typename T, bool kRegisters>
+// One launch in LQ terms: `rows` reflectors over `cols` lanes.
+template <typename T, bool kRegisters, bool kTall>
 int launch(const void* slab, void* lv, void* tt, void* scratch, void* count, int rows,
            int cols, int off, int ctas, int width, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -514,10 +549,10 @@ int launch(const void* slab, void* lv, void* tt, void* scratch, void* count, int
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes(rows, width, kRegisters, sizeof(T));
   int most = 0;
-  if (const int e = max_ctas<T, kRegisters>(device, &most)) return e;
+  if (const int e = max_ctas<T, kRegisters, kTall>(device, &most)) return e;
   // the column CTAs and the T^T CTA must all be resident at once
   if (ctas < 1 || ctas + 1 > most) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  auto kernel = panel_lq_kernel<T, kRegisters>;
+  auto kernel = panel_lq_kernel<T, kRegisters, kTall>;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(count, 0, sizeof(unsigned int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -534,15 +569,15 @@ int launch(const void* slab, void* lv, void* tt, void* scratch, void* count, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTall>
 int launch_chunk(const void* slab, void* lv, void* tt, void* scratch, void* count, int rows,
                  int cols, int off, int ctas, int width, int registers, int device,
                  void* stream) {
   if (registers)
-    return launch<T, true>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width, device,
-                           stream);
-  return launch<T, false>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width, device,
-                          stream);
+    return launch<T, true, kTall>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width,
+                                  device, stream);
+  return launch<T, false, kTall>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width,
+                                 device, stream);
 }
 
 }  // namespace
@@ -560,13 +595,31 @@ int launch_chunk(const void* slab, void* lv, void* tt, void* scratch, void* coun
 extern "C" int panel_lq_f64(const void* slab, void* lv, void* tt, void* scratch, void* count,
                             int rows, int cols, int off, int ctas, int width, int registers,
                             int device, void* stream) {
-  return launch_chunk<double>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width,
-                              registers, device, stream);
+  return launch_chunk<double, false>(slab, lv, tt, scratch, count, rows, cols, off, ctas,
+                                     width, registers, device, stream);
 }
 
 extern "C" int panel_lq_f32(const void* slab, void* lv, void* tt, void* scratch, void* count,
                             int rows, int cols, int off, int ctas, int width, int registers,
                             int device, void* stream) {
-  return launch_chunk<float>(slab, lv, tt, scratch, count, rows, cols, off, ctas, width,
-                             registers, device, stream);
+  return launch_chunk<float, false>(slab, lv, tt, scratch, count, rows, cols, off, ctas,
+                                    width, registers, device, stream);
+}
+
+// The same on the tall layout: a (rows, cols) row-major tall slab (rows >=
+// cols, cols <= 128 with the chunk in registers), its vr (rows, cols) and T
+// (cols, cols). `ctas` CTAs of `width` slab rows; `scratch` holds
+// (2 ctas + 3 + cols) * cols elements (5 more with -DPANEL_LQ_PHASES).
+extern "C" int leaf_qr_f64(const void* slab, void* vr, void* t, void* scratch, void* count,
+                           int rows, int cols, int ctas, int width, int registers, int device,
+                           void* stream) {
+  return launch_chunk<double, true>(slab, vr, t, scratch, count, cols, rows, 0, ctas, width,
+                                    registers, device, stream);
+}
+
+extern "C" int leaf_qr_f32(const void* slab, void* vr, void* t, void* scratch, void* count,
+                           int rows, int cols, int ctas, int width, int registers, int device,
+                           void* stream) {
+  return launch_chunk<float, true>(slab, vr, t, scratch, count, cols, rows, 0, ctas, width,
+                                   registers, device, stream);
 }

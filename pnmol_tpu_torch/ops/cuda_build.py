@@ -1,13 +1,15 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-Every source ``csrc/<name>.cu`` exports two plain C functions,
-``<name>_f64`` and ``<name>_f32``, that take device pointers and integer
-sizes, then the device index and the stream, launch on that stream without
-synchronizing, and return the launch's ``cudaError_t`` (0 = success). Each
-source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``_build/<name>-<hash>/``, keyed by the hash of the source and the flags, so
-an edited source builds anew and an unchanged one is reused. Nothing here
-falls back: a missing ``nvcc``, a failed build or a failed launch raises.
+Every source ``csrc/<name>.cu`` exports pairs of plain C functions,
+``<symbol>_f64`` and ``<symbol>_f32`` (``panel_lq.cu`` exports ``panel_lq``
+and ``leaf_qr``, ``gram_radial.cu`` exports ``gram_radial``), that take
+device pointers and integer sizes, then the device index and the stream,
+launch on that stream without synchronizing, and return the launch's
+``cudaError_t`` (0 = success). Each source is compiled with ``nvcc`` for
+``sm_90a`` at first use into ``_build/<name>-<hash>/``, keyed by the hash
+of the source and the flags, so an edited source builds anew and an
+unchanged one is reused. Nothing here falls back: a missing ``nvcc``, a
+failed build or a failed launch raises.
 """
 
 import ctypes
@@ -73,16 +75,22 @@ def build(name: str, defines: tuple = ()) -> pathlib.Path:
 
 
 @functools.lru_cache(maxsize=None)
-def entry_points(name: str, argtypes: tuple):
-    """``{dtype: C function}`` of ``csrc/<name>.cu``, built and bound once.
+def _library(name: str):
+    return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def entry_points(name: str, symbol: str, argtypes: tuple):
+    """``{dtype: C function}`` of the entry points ``<symbol>_f64`` and
+    ``<symbol>_f32`` of ``csrc/<name>.cu``, built and bound once.
 
     ``argtypes`` are the ctypes types of the kernel's own arguments; the
     device index and the stream are appended.
     """
-    lib = ctypes.CDLL(str(build(name)))
+    lib = _library(name)
     functions = {}
     for dtype, suffix in _DTYPE_SUFFIX.items():
-        fn = getattr(lib, f"{name}_{suffix}")
+        fn = getattr(lib, f"{symbol}_{suffix}")
         fn.argtypes = [*argtypes, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         functions[dtype] = fn
@@ -100,10 +108,11 @@ def check_input(name: str, tensor, ndim: int = 2) -> None:
         raise ValueError(f"{name}: input must be a contiguous {ndim}-D tensor")
 
 
-def launch(name: str, argtypes: tuple, like, *args) -> None:
-    """Launch ``csrc/<name>.cu``'s kernel for ``like``'s dtype on the current
-    stream of ``like``'s device; raise if the launch failed."""
-    fn = entry_points(name, argtypes)[like.dtype]
+def launch(name: str, symbol: str, argtypes: tuple, like, *args) -> None:
+    """Launch the entry point ``symbol`` of ``csrc/<name>.cu`` for ``like``'s
+    dtype on the current stream of ``like``'s device; raise if the launch
+    failed."""
+    fn = entry_points(name, symbol, argtypes)[like.dtype]
     err = fn(*args, like.device.index, torch.cuda.current_stream(like.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"{symbol}: kernel launch failed (cudaError {err})")

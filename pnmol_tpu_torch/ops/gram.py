@@ -83,7 +83,7 @@ def gram_radial(points_x, points_y, input_scale, output_scale, *, phi_name):
     x, y = _centred(points_x, points_y)
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     cuda_build.launch(
-        "gram_radial", _GRAM_ARGS, x,
+        "gram_radial", "gram_radial", _GRAM_ARGS, x,
         x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, dim, _PHI_CODE[phi_name],
         float(input_scale), float(output_scale),
     )

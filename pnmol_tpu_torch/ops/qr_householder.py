@@ -17,17 +17,19 @@ leaf panels and their merge) has no counterpart here.
 
 The R-form half (:func:`blocked_qr_r` and the step hook
 :func:`make_householder_factorization`) is the tall blocked Householder QR:
-each ``(rows, leaf)`` column slab is factorized by ONE leaf-kernel launch
+each ``(rows, leaf)`` column slab is factorized by ONE leaf launch
 (:func:`leaf_qr`, which replaces the TPU kernel ``_leaf_kernel``), leaves
 are merged into one block-wide compact WY, and the columns right of the
 block take one rank-``block`` trailing update ``A - V T^T (V^T A)``. The
 TPU-only row quantization, zero-row padding and liveness barriers of the
-JAX sweep have no counterpart here.
+JAX sweep have no counterpart here. A tall slab's QR is the panel LQ of its
+transpose, transposed, so the leaf launch runs the panel kernel on the tall
+layout, spread over the SMs by the same rule.
 
 On a CPU tensor :func:`panel_lq` and :func:`leaf_qr` run their plain PyTorch
 versions :func:`panel_lq_reference` and :func:`leaf_qr_reference`; on a CUDA
-tensor they launch their kernels (built with ``nvcc`` from
-``csrc/panel_lq.cu`` and ``csrc/leaf_qr.cu`` at first use) or raise.
+tensor they launch the panel kernel (built with ``nvcc`` from
+``csrc/panel_lq.cu`` at first use) or raise.
 """
 
 import ctypes
@@ -42,10 +44,12 @@ from pnmol_tpu_torch.ops import cuda_build
 _PANEL_LQ_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
 # dynamic shared memory one block may use on Hopper (227 KB)
 SHARED_BYTES_PER_CTA = 232448
-# the leaf kernel's: slab, vr, t (device pointers), rows, cols
-_LEAF_QR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
-# most columns one leaf-kernel launch takes (one per lane of a warp)
-LEAF_QR_MAX_COLS = 32
+# the tall layout's: slab, vr, T, scratch, barrier count (device pointers),
+# rows, cols, ctas, width, registers
+_LEAF_QR_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+# most columns one leaf launch takes: the panel kernel's rows with the chunk
+# in registers (PANEL_REGISTER_ROWS)
+LEAF_QR_MAX_COLS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +179,28 @@ def _check_panel(slab, off):
         )
 
 
+def _run_panel_kernel(symbol, argtypes, slab, reflectors, launch, *sizes):
+    """Launch the panel kernel's entry point ``symbol`` on a CUDA ``slab``
+    whose LQ has ``reflectors`` rows, with the shape ``launch``: the output
+    (like ``slab``), the ``(reflectors, reflectors)`` factor, the scratch and
+    the barrier count are allocated here, ``sizes`` go between the pointers
+    and the launch shape. Raises what the kernel does not take."""
+    if launch.shared_bytes > SHARED_BYTES_PER_CTA:
+        raise ValueError(f"{symbol}: a {tuple(slab.shape)} slab needs {launch.shared_bytes} "
+                         f"bytes of shared memory per CTA, more than {SHARED_BYTES_PER_CTA}")
+    out = torch.empty_like(slab)
+    factor = torch.empty((reflectors, reflectors), dtype=slab.dtype, device=slab.device)
+    scratch = torch.empty(((2 * launch.ctas + 3 + reflectors) * reflectors,),
+                          dtype=slab.dtype, device=slab.device)
+    count = torch.empty((1,), dtype=torch.int32, device=slab.device)
+    cuda_build.launch(
+        "panel_lq", symbol, argtypes, slab,
+        slab.data_ptr(), out.data_ptr(), factor.data_ptr(), scratch.data_ptr(), count.data_ptr(),
+        *sizes, launch.ctas, launch.width, int(launch.registers),
+    )
+    return out, factor
+
+
 def _launch_panel_lq(slab, off, launch):
     """Launch the panel kernel on a CUDA ``slab`` with the shape ``launch``
     (:func:`panel_lq`'s, or another CTA count's for timing) and add one to
@@ -182,19 +208,7 @@ def _launch_panel_lq(slab, off, launch):
     off = int(off)
     _check_panel(slab, off)
     rows, cols = slab.shape
-    if launch.shared_bytes > SHARED_BYTES_PER_CTA:
-        raise ValueError(f"panel_lq: a {rows} x {cols} panel needs {launch.shared_bytes} "
-                         f"bytes of shared memory per CTA, more than {SHARED_BYTES_PER_CTA}")
-    lv = torch.empty_like(slab)
-    tT = torch.empty((rows, rows), dtype=slab.dtype, device=slab.device)
-    scratch = torch.empty(((2 * launch.ctas + 3 + rows) * rows,), dtype=slab.dtype,
-                          device=slab.device)
-    count = torch.empty((1,), dtype=torch.int32, device=slab.device)
-    cuda_build.launch(
-        "panel_lq", _PANEL_LQ_ARGS, slab,
-        slab.data_ptr(), lv.data_ptr(), tT.data_ptr(), scratch.data_ptr(), count.data_ptr(),
-        rows, cols, off, launch.ctas, launch.width, int(launch.registers),
-    )
+    lv, tT = _run_panel_kernel("panel_lq", _PANEL_LQ_ARGS, slab, rows, launch, rows, cols, off)
     panel_lq.launches += 1
     return lv, tT
 
@@ -346,16 +360,33 @@ def leaf_qr_reference(slab):
     return vr, t
 
 
+def leaf_qr_launch(rows, cols, itemsize, num_sms):
+    """The launch shape of one ``(rows, cols)`` tall slab: the panel rule
+    (:func:`panel_lq_launch`) on the transposed sizes, so each CTA holds
+    ``width`` consecutive rows of the slab (32 CTAs of 113 rows at 3586
+    rows, 56 of 119 at 6658)."""
+    return panel_lq_launch(cols, rows, itemsize, num_sms)
+
+
 def leaf_qr(slab):
     """Householder QR of one tall leaf slab (see :func:`leaf_qr_reference`).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel of
-    ``csrc/leaf_qr.cu`` on the current stream (no synchronization) and add
-    one to ``leaf_qr.launches``; the kernel takes 1 <= leaf <= 32 columns
-    and rows >= leaf, and anything else raises.
+    CPU tensors take the plain version. CUDA tensors launch the panel kernel
+    of ``csrc/panel_lq.cu`` on the tall layout on the current stream (no
+    synchronization), with the shape of :func:`leaf_qr_launch`, and add one
+    to ``leaf_qr.launches`` (never to ``panel_lq.launches``); the kernel
+    takes 1 <= leaf <= 128 columns and rows >= leaf, and anything else
+    raises.
     """
     if slab.device.type == "cpu":
         return leaf_qr_reference(slab)
+    _check_leaf(slab)
+    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+    rows, cols = slab.shape
+    return _launch_leaf_qr(slab, leaf_qr_launch(rows, cols, slab.element_size(), num_sms))
+
+
+def _check_leaf(slab):
     cuda_build.check_input("leaf_qr", slab)
     rows, cols = slab.shape
     if not 1 <= cols <= min(rows, LEAF_QR_MAX_COLS):
@@ -363,12 +394,15 @@ def leaf_qr(slab):
             f"leaf_qr: need 1 <= cols <= min(rows, {LEAF_QR_MAX_COLS}), got "
             f"rows={rows}, cols={cols}"
         )
-    vr = torch.empty_like(slab)
-    t = torch.empty((cols, cols), dtype=slab.dtype, device=slab.device)
-    cuda_build.launch(
-        "leaf_qr", _LEAF_QR_ARGS, slab,
-        slab.data_ptr(), vr.data_ptr(), t.data_ptr(), rows, cols,
-    )
+
+
+def _launch_leaf_qr(slab, launch):
+    """Launch the tall layout on a CUDA ``slab`` with the shape ``launch``
+    (:func:`leaf_qr`'s, or another CTA count's for timing) and add one to
+    ``leaf_qr.launches``; raise what the kernel does not take."""
+    _check_leaf(slab)
+    rows, cols = slab.shape
+    vr, t = _run_panel_kernel("leaf_qr", _LEAF_QR_ARGS, slab, cols, launch, rows, cols)
     leaf_qr.launches += 1
     return vr, t
 
@@ -407,24 +441,21 @@ def blocked_qr_r(A, *, leaf: int = 32, block: int = 128):
         rows_w = work.shape[0]
         blk = work[:, :width].clone()
         V = A.new_zeros((rows_w, width))
-        T = None
+        T = A.new_zeros((width, width))
+        # each leaf: few, large ops, since the host issues them one by one
         for jl in range(0, width, leaf):
-            lw = min(leaf, width - jl)
-            vr, t = leaf_qr(blk[jl:, jl:jl + lw].contiguous())
-            blk[jl:, jl:jl + lw] = vr
-            v = _reflectors(vr.T).T  # reflector columns, unit diagonal
-            if jl + lw < width:
-                blk[jl:, jl + lw:] = _apply_wy_transpose(v, t, blk[jl:, jl + lw:])
-            V[jl:, jl:jl + lw] = v
-            if T is None:
-                T = t
-            else:  # merge: T12 = -T1 (V1^T V2) T2
-                t12 = -(T @ (V[:, :jl].T @ V[:, jl:jl + lw])) @ t
-                T = torch.cat(
-                    (torch.cat((T, t12), dim=1),
-                     torch.cat((t.new_zeros((lw, jl)), t), dim=1)),
-                    dim=0,
-                )
+            cols = slice(jl, min(jl + leaf, width))
+            vr, t = leaf_qr(blk[jl:, cols].contiguous())
+            blk[jl:cols.stop, cols] = vr[:cols.stop - jl]  # R's rows; the tails go to V
+            v = V[jl:, cols]  # reflector columns, unit diagonal
+            v.copy_(torch.tril(vr, -1))
+            v.diagonal().fill_(1.0)
+            if cols.stop < width:  # Q^T A = A - V T^T (V^T A) on the block's later columns
+                rest = blk[jl:, cols.stop:]
+                rest -= v @ (t.T @ (v.T @ rest))
+            T[cols, cols] = t
+            if jl:  # merge: T12 = -T1 (V1^T V2) T2, V2 zero above row jl
+                T[:jl, cols].addmm_(T[:jl, :jl] @ (V[jl:, :jl].T @ v), t, beta=0, alpha=-1)
         R[done:done + width, done:done + width] = torch.triu(blk[:width])
         trail = work[:, width:]
         if trail.shape[1]:

@@ -1,6 +1,6 @@
-"""The CUDA kernels (panel LQ, radial Gram, leaf QR) on the card, against
-their plain PyTorch versions, and the latent-force golden through the panel
-kernel.
+"""The CUDA kernels (panel LQ, radial Gram, and leaf QR: the panel kernel on
+the tall layout) on the card, against their plain PyTorch versions, and the
+latent-force golden through the panel kernel and the R-form hook.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed (skip the JAX-pinning conftest there)::
@@ -157,10 +157,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 # --- radial Gram (K3) -------------------------------------------------------
 
-GRAM_SHAPES = [((512, 1), (512, 1)), ((1000, 2), (777, 2)), ((37, 3), (53, 3))]
+# the kernel's tiles are 32 rows x 128 columns; the ragged shapes divide
+# neither, and an odd or non-multiple-of-4 m leaves row starts that a
+# 16-byte store cannot take
+GRAM_SHAPES = [((512, 1), (512, 1)), ((1000, 2), (777, 2)), ((37, 3), (53, 3)),
+               ((70, 1), (300, 1)), ((33, 2), (131, 2)), ((100, 3), (258, 3)),
+               ((50, 5), (130, 5))]
 
 
-@pytest.mark.parametrize("shapes", GRAM_SHAPES, ids=["512x1", "ragged-1000x777x2", "dim3"])
+@pytest.mark.parametrize("shapes", GRAM_SHAPES,
+                         ids=["512x1", "ragged-1000x777x2", "dim3", "ragged-dim1",
+                              "ragged-odd-m-dim2", "ragged-dim3", "dim5-two-chunks"])
 @pytest.mark.parametrize("phi_name", ["squared_exponential", "matern52"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_gram_kernel_matches_the_plain_version(cuda, shapes, phi_name, dtype):
@@ -209,8 +216,9 @@ def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize(
     "rows, cols, zero_cols",
     [(3586, 32, ()), (2050, 32, ()), (40, 32, ()), (2050, 32, (3, 17)), (300, 2, ()),
-     (32, 32, ())],
-    ids=["step-top", "step-bottom", "short", "zero-columns", "narrow-last-leaf", "square"],
+     (32, 32, ()), (6658, 32, ()), (3586, 128, ()), (20000, 32, ()), (6658, 128, (0, 77))],
+    ids=["step-top", "step-bottom", "short", "zero-columns", "narrow-last-leaf", "square",
+         "latent-step-top", "leaf-128", "chunk-in-global-memory", "latent-leaf-128-zero-columns"],
 )
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_leaf_kernel_matches_the_plain_version(cuda, rows, cols, zero_cols, dtype):
@@ -232,11 +240,42 @@ def test_leaf_kernel_matches_the_plain_version(cuda, rows, cols, zero_cols, dtyp
         assert t[k, k].item() == 0.0  # the identity reflector
 
 
+def test_two_leaf_launches_give_the_same_bits(cuda):
+    """The tall layout shares the panel kernel's fixed-order exchange."""
+    for rows in (3586, 20000):  # chunks in registers, and in global memory
+        x = torch.tensor(np.random.default_rng(rows).standard_normal((rows, 32)), device=cuda)
+        vr, t = tq.leaf_qr(x)
+        vr2, t2 = tq.leaf_qr(x)
+        assert torch.equal(vr, vr2) and torch.equal(t, t2)
+
+
+def test_leaf_launch_is_the_panel_launch_of_the_transpose(cuda):
+    """The same reflectors from the same arithmetic on the same launch shape:
+    the tall launch gives the panel launch's bits, transposed, and counts
+    as a leaf launch only."""
+    x = torch.tensor(np.random.default_rng(7).standard_normal((3586, 32)), device=cuda)
+    panel_before, leaf_before = tq.panel_lq.launches, tq.leaf_qr.launches
+    vr, t = tq.leaf_qr(x)
+    assert (tq.panel_lq.launches, tq.leaf_qr.launches) == (panel_before, leaf_before + 1)
+    lv, tT = tq.panel_lq(x.T.contiguous(), 0)
+    assert torch.equal(vr, lv.T) and torch.equal(t, tT.T)
+
+
 def test_blocked_qr_r_of_the_step_pre_array_matches_the_gram(cuda):
     A = torch.tensor(np.random.default_rng(2).standard_normal((3586, 2050)), device=cuda)
     before = tq.leaf_qr.launches
     R = tq.blocked_qr_r(A)
     assert tq.leaf_qr.launches == before + 65  # ceil(2050 / 32) leaves
+    G = A.T @ A
+    assert ((R.T @ R - G).abs().max() / G.abs().max()).item() <= 1e-12
+    assert torch.all(torch.tril(R, -1) == 0).item()
+
+
+def test_blocked_qr_r_with_leaf_128_makes_one_launch_per_block(cuda):
+    A = torch.tensor(np.random.default_rng(3).standard_normal((3586, 2050)), device=cuda)
+    before = tq.leaf_qr.launches
+    R = tq.blocked_qr_r(A, leaf=128)
+    assert tq.leaf_qr.launches == before + 17  # 16 blocks of 128 columns, then 2
     G = A.T @ A
     assert ((R.T @ R - G).abs().max() / G.abs().max()).item() <= 1e-12
     assert torch.all(torch.tril(R, -1) == 0).item()
@@ -249,6 +288,6 @@ def test_leaf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         tq.leaf_qr(x.T)  # not contiguous
     with pytest.raises(ValueError):
-        tq.leaf_qr(torch.zeros((40, 33), dtype=torch.float64, device=cuda))  # > 32 columns
+        tq.leaf_qr(torch.zeros((200, 129), dtype=torch.float64, device=cuda))  # > 128 columns
     with pytest.raises(ValueError):
         tq.leaf_qr(torch.zeros((4, 8), dtype=torch.float64, device=cuda))  # rows < cols

@@ -135,13 +135,183 @@ def test_blocked_qr_r_rejects_wide_input():
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
-    """No fallback: without nvcc the leaf kernel's build raises."""
+    """No fallback: without nvcc the build of the source that holds the leaf
+    kernel (the panel kernel's, launched on the tall layout) raises."""
     import torch.utils.cpp_extension as cpp_extension
 
     monkeypatch.setattr(cuda_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.build("leaf_qr")
+        cuda_build.build("panel_lq")
+
+
+# --- the leaf kernel as the panel kernel on the tall layout -----------------
+
+
+def _leaf_slab(rng, rows, leaf, zero_cols=(), duplicate=None):
+    slab = rng.standard_normal((rows, leaf))
+    slab[:, list(zero_cols)] = 0.0  # zero columns: the identity reflector
+    if duplicate is not None:  # column duplicate[1] repeats column duplicate[0]
+        slab[:, duplicate[1]] = slab[:, duplicate[0]]
+    return slab
+
+
+@pytest.mark.parametrize("leaf", [2, 8, 32])
+@pytest.mark.parametrize("kind", ["zero-columns", "duplicate-column"])
+def test_leaf_qr_is_the_panel_lq_of_the_transpose(leaf, kind):
+    """The identity the CUDA leaf launch rests on: a tall slab's QR with the
+    TPU numerics is the panel LQ of its transpose at off = 0, transposed
+    (vr = LV^T, T = (T^T)^T), and both are JAX's Pallas leaf kernel. A zero
+    column is the identity reflector, entry by entry. A duplicate column
+    leaves a tail of rounding noise whose reflector differs between
+    implementations: the columns before it agree entry by entry, R by its
+    Gram. Tolerance: f64 rounding of O(1) data, ~1e-15, with margin."""
+    rows = 40 if leaf < 32 else 70
+    zero, dup = ((0, leaf - 1), None) if kind == "zero-columns" else ((), (0, leaf - 1))
+    slab = _leaf_slab(np.random.default_rng(leaf), rows, leaf, zero, dup)
+    vr, t = tq.leaf_qr_reference(torch.from_numpy(slab))
+    lv, tT = tq.panel_lq_reference(torch.from_numpy(slab.T.copy()), 0)
+    vr_j, t_j = (np.asarray(a) for a in qh._leaf_qr(jnp.asarray(slab), leaf=leaf, interpret=True))
+    upto = leaf if dup is None else dup[1]  # the columns whose reflectors are defined
+    for other_vr, other_t in ((lv.numpy().T, tT.numpy().T), (vr_j, t_j)):
+        np.testing.assert_allclose(vr.numpy()[:, :upto], other_vr[:, :upto], rtol=0, atol=QR_TOL)
+        np.testing.assert_allclose(t.numpy()[:upto, :upto], other_t[:upto, :upto], rtol=0,
+                                   atol=QR_TOL)
+        R, R_o = np.triu(vr.numpy()[:leaf]), np.triu(other_vr[:leaf])
+        G = slab.T @ slab
+        np.testing.assert_allclose(R.T @ R, G, rtol=0, atol=QR_TOL * np.abs(G).max())
+        np.testing.assert_allclose(R_o.T @ R_o, G, rtol=0, atol=QR_TOL * np.abs(G).max())
+    for k in zero:
+        assert t[k, k].item() == 0.0
+
+
+def _replay_tall_kernel(slab, launch):
+    """``csrc/panel_lq.cu``'s dataflow on the tall layout, with torch on the
+    CPU: the slab's rows cut into ``launch.ctas`` chunks of ``launch.width``
+    consecutive rows; per chunk the partials q_j = sum_{r > k} x[r, j] x[r, k]
+    of its rows for every column j, summed over the chunks that hold a row
+    > k in chunk order; a_j = x[k, j] from the chunk that holds row k; every
+    column's v_k . x_j as s_j = a_j + inv q_j; the update chunk by chunk; and
+    T (the transpose of the T^T the kernel forms) after the loop."""
+    rows, leaf = slab.shape
+    x = slab.clone()
+    chunks = [(p * launch.width, min((p + 1) * launch.width, rows))
+              for p in range(launch.ctas)]
+    z = x.new_zeros((leaf, leaf))
+    taus = x.new_zeros(leaf)
+    for k in range(leaf):
+        q = torch.zeros(leaf, dtype=x.dtype)
+        for c0, c1 in chunks:  # the kernel's order: slot by slot
+            if c1 - 1 > k:
+                below = slice(max(c0, k + 1), c1)
+                q = q + x[below].T @ x[below, k]
+        a = x[k].clone()
+        alpha = a[k]
+        norm = torch.sqrt(alpha * alpha + q[k])  # the kernel's scalars
+        beta = -norm if alpha >= 0 else norm
+        inv = 1.0 / (alpha - beta) if norm > 0 else torch.zeros((), dtype=x.dtype)
+        tau = (beta - alpha) / beta if norm > 0 else torch.zeros((), dtype=x.dtype)
+        s = a + inv * q
+        z[k, :k] = s[:k]
+        taus[k] = tau
+        for c0, c1 in chunks:
+            if max(c0, k) >= c1:
+                continue  # a chunk above the diagonal
+            lanes = torch.arange(max(c0, k), c1)
+            v = torch.where(lanes == k, torch.ones((), dtype=x.dtype), x[lanes, k] * inv)
+            x[lanes, k + 1:] -= v[:, None] * (tau * s[k + 1:])
+            x[lanes, k] = torch.where(lanes == k, beta, v)
+    tT = x.new_zeros((leaf, leaf))
+    for k in range(leaf):
+        tT[k, :k] = -taus[k] * (z[k, :k] @ tT[:k, :k])
+        tT[k, k] = taus[k]
+    return x, tT.T
+
+
+@pytest.mark.parametrize(
+    "rows, leaf, zero_cols, ctas",
+    [(70, 8, (), 3), (70, 8, (2, 5), 4), (40, 16, (), 6), (64, 8, range(8), 5),
+     (37, 2, (), 4), (37, 2, (1,), 7), (70, 8, (), 1)],
+    ids=["ragged", "zero-columns", "chunks-above-diagonal", "zero-slab", "two-columns",
+         "two-columns-zero-column", "one-cta"],
+)
+def test_tall_dataflow_matches_plain_version_and_jax(rows, leaf, zero_cols, ctas):
+    slab = _leaf_slab(np.random.default_rng(rows + leaf + ctas), rows, leaf, zero_cols)
+    launch = tq.panel_lq_geometry(leaf, rows, ctas, 8)  # LQ sizes: leaf rows, `rows` lanes
+    assert launch.ctas == ctas
+    vr, t = _replay_tall_kernel(torch.from_numpy(slab), launch)
+    vr_r, t_r = tq.leaf_qr_reference(torch.from_numpy(slab))
+    vr_j, t_j = qh._leaf_qr(jnp.asarray(slab), leaf=leaf, interpret=True)
+    for got, want in ((vr, vr_r), (t, t_r), (vr, np.asarray(vr_j)), (t, np.asarray(t_j))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=QR_TOL)
+    for k in zero_cols:
+        assert t[k, k].item() == 0.0  # the identity reflector
+
+
+def _sweep_leaves(rows, cols, leaf, block=128):
+    """(rows, cols) of every slab :func:`blocked_qr_r` hands to ``leaf_qr``
+    on a ``(rows, cols)`` matrix."""
+    block = max(block, leaf)
+    leaves = []
+    for done in range(0, cols, block):
+        width = min(block, cols - done)
+        leaves += [(rows - done - jl, min(leaf, width - jl)) for jl in range(0, width, leaf)]
+    return leaves
+
+
+def test_sweep_leaves_are_the_slabs_blocked_qr_r_factorizes(monkeypatch):
+    shapes = []
+
+    def recording_leaf_qr(slab):
+        shapes.append(tuple(slab.shape))
+        return tq.leaf_qr_reference(slab)
+
+    monkeypatch.setattr(tq, "leaf_qr", recording_leaf_qr)
+    A = torch.from_numpy(np.random.default_rng(8).standard_normal((60, 37)))
+    tq.blocked_qr_r(A, leaf=4, block=16)
+    assert shapes == _sweep_leaves(60, 37, 4, block=16)
+    assert len(shapes) == 2 * 4 + 2  # two blocks of 4 leaves, then 5 columns in 2
+
+
+# the R-form pre-arrays of the N = 512 steps: white heat, latent heat
+N512_R_FORM = {"white": (3586, 2050), "latent": (6658, 3586)}
+
+
+@pytest.mark.parametrize("path", sorted(N512_R_FORM))
+@pytest.mark.parametrize("leaf", [32, 128])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+def test_launch_rule_covers_every_leaf_of_the_n512_r_form_sweeps(path, leaf, itemsize):
+    leaves = _sweep_leaves(*N512_R_FORM[path], leaf)
+    assert len(leaves) == {("white", 32): 65, ("latent", 32): 113, ("white", 128): 17,
+                           ("latent", 128): 29}[path, leaf]
+    for rows, cols in leaves:
+        launch = tq.leaf_qr_launch(rows, cols, itemsize, 132)
+        assert 1 <= launch.ctas <= 131  # and the T^T CTA: at most 132 SMs
+        covered = np.zeros(rows, dtype=int)
+        for p in range(launch.ctas):
+            span = slice(p * launch.width, min((p + 1) * launch.width, rows))
+            assert span.start < span.stop  # no CTA without a row
+            covered[span] += 1
+        assert np.all(covered == 1)
+        assert launch.registers  # every leaf of the N = 512 sweeps fits in registers
+        assert launch.shared_bytes <= tq.SHARED_BYTES_PER_CTA
+        assert launch == tq.panel_lq_launch(cols, rows, itemsize, 132)
+    first = tq.leaf_qr_launch(*leaves[0], itemsize, 132)
+    assert (first.ctas, first.width) == {"white": (32, 113), "latent": (56, 119)}[path]
+
+
+@pytest.mark.parametrize("shape", [(40, 17), (97, 33)], ids=str)
+def test_blocked_qr_r_with_one_leaf_per_block_matches_jax(shape):
+    """``leaf = block``: one leaf per block and no leaf merge, a call JAX's
+    ``blocked_qr_r`` takes too."""
+    A = np.random.default_rng(9).standard_normal(shape)
+    R_j = np.asarray(qh.blocked_qr_r(jnp.asarray(A), leaf=16, block=16, row_quant=32,
+                                     interpret=True))
+    R = tq.blocked_qr_r(torch.from_numpy(A), leaf=16, block=16).numpy()
+    assert np.all(np.tril(R, -1) == 0.0)
+    np.testing.assert_allclose(R, R_j, rtol=0, atol=QR_TOL * np.sqrt(shape[0]))
+    G = A.T @ A
+    np.testing.assert_allclose(R.T @ R, G, rtol=0, atol=QR_TOL * np.abs(G).max())
 
 
 @pytest.fixture(scope="module")
