@@ -28,7 +28,13 @@ Phases (any failure exits non-zero; nothing is swallowed):
    full blocked QRs of the 3586 x 2050 white and 6658 x 3586 latent R-form
    pre-arrays at leaf 32 and 128 against their Grams and cuSOLVER's QR;
    and the kernels', plain versions' and library's times beside their
-   bounds;
+   bounds. Then the leaf launch of the LQ leaf route (the panel kernel on
+   a leaf, counted as ``leaf_lq``) against its plain version at the large-N
+   shapes (64 x 20257 and 64 x 30002 in the global-memory tier, 32 x 26626),
+   twice each with bitwise-equal results; full 256-row-block sweeps at leaf
+   32 and 64 against their Grams and their launch counts; and the 64 x 20257
+   and 64 x 30002 leaves' times beside the plain version's,
+   ``torch.geqrf``'s and the bound;
 4. golden: the dx = 0.2 heat solve against
    ``tests/golden/heat_trajectories.npz``, through the panel kernel and
    through the R-form hook (leaf kernel);
@@ -61,7 +67,27 @@ Phases (any failure exits non-zero; nothing is swallowed):
     path, compared;
 13. latent R form: the phase-9 problem through the R-form hook, initialize
     and 20 steps (2260 leaf launches: each 6658 x 3586 step pre-array in
-    28 x 4 + 1 = 113 leaves, the init plain), against phase 9's plain run.
+    28 x 4 + 1 = 113 leaves, the init plain), against phase 9's plain run;
+14. latent d=2048: heat on 2048 points through ``LinearLatentForceEK1`` with
+    ``"householder"`` (hooks sized for 4096 points: 256-row blocks on the
+    leaf route, 32-row leaves), initialize and 2 steps, fused (1219 leaf
+    launches) and two-QR banded (1987), no panel launch, against the plain
+    path;
+15. N=1e4 two-QR: ``bench.py``'s large-N point in f64 (N = 10000, nu = 1,
+    ``Constant(1e-3)``): initialize and 5 steps through ``"householder"``,
+    ``fused=False``, ``propagate_band="banded"`` (256-row blocks of 64-row
+    leaves: 4379 leaf launches, no panel launch) and ``"interleaved"``
+    (4379 + 313 for the initial factor's re-triangularization), against
+    the plain two-QR path (``torch.linalg.qr`` of each pre-array); init
+    seconds, steps/s, the sweeps of each path, and the peak memory.
+
+At the meshes of phases 14 and 15 the heat does not decay: the FD
+operator's row sum at the initial peak is positive, so ``(L u0)`` points up
+there, and the FD error covariance (the filter's measurement noise) dwarfs
+it, so the filter's initial derivative is that value shrunk about 1700-fold
+at 2048 points and max|u| rises by about ``dt`` times it a step, as in the
+JAX package (``tests/test_torch_fine_mesh.py``). There max|u| is held to
+the direction both point in.
 
 Every path's launch counts are set to 0 just before it and read just after;
 the kernels' ``launches`` are the sums over the paths. The last lines are
@@ -103,8 +129,22 @@ EXPECTED_LV_LAUNCHES = 13 + 17 * NUM_STEPS
 # the adaptive run: 20 accepted steps of 41 attempts on the CPU (JAX and the
 # port alike); every attempt factorizes the white step's pre-array
 ADAPTIVE_TMAX = 0.1
-# the source of each kernel: the leaf QR is the panel kernel on the tall layout
-SOURCES = {"panel_lq": "panel_lq", "gram_radial": "gram_radial", "leaf_qr": "panel_lq"}
+# the large-N phases: 256-row blocks on the leaf route. Latent heat on 2048
+# points (m = 2050; the hooks sized for the stacked 4096 points: 32-row
+# leaves), 2 steps; the white heat at N = 1e4, nu = 1 (m = 10002, D = 2e4:
+# 64-row leaves), 5 steps
+LATENT_LARGE_POINTS, LATENT_LARGE_STEPS = 2048, 2
+LARGE_N, LARGE_NU, LARGE_STEPS = 10000, 1, 5
+# the source of each kernel: the leaf QR is the panel kernel on the tall
+# layout, the LQ leaf the panel kernel on a leaf of a block
+SOURCES = {"panel_lq": "panel_lq", "leaf_lq": "panel_lq", "gram_radial": "gram_radial",
+           "leaf_qr": "panel_lq"}
+
+
+def leaf_launches(rows, block, leaf):
+    """Leaf launches of one LQ sweep of ``rows`` rows on the leaf route:
+    ``ceil(rows / block)`` blocks of ``ceil(b / leaf)`` leaves."""
+    return sum(-(-min(block, rows - i) // leaf) for i in range(0, rows, block))
 
 
 def fail(message):
@@ -272,27 +312,33 @@ def phase_kernel(tq, dev):
         print(f"panel {rows} x {cols} f64 by CTA count (the rule's first): {', '.join(times)}",
               flush=True)
 
-    # times at the main path's shapes, in turns: plain, kernel, kernel, plain;
-    # torch.geqrf of the transposed panel (the same reflectors, no T) as the
-    # library yardstick
-    timed = {}
-    for rows, cols, label in ((128, 3586, "step panel"), (128, 6658, "latent step"),
-                              (32, 3586, "leaf form"), (128, 1538, "white init panel")):
-        x = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
-        xt = x.T.contiguous()
-        plain = [cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3)]
-        kernel = [cuda_ms(lambda: tq.panel_lq(x, 0), 20) for _ in range(2)]
-        plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
-        library = cuda_ms(lambda: torch.geqrf(xt), 20)
-        ms = sum(kernel) / 2
-        bound_ms, bound_by = panel_bound(rows, cols, 0, torch.float64)
-        launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
-        print(f"panel {rows} x {cols} f64 ({label}): kernel {kernel} ms, plain {plain} ms, "
-              f"torch.geqrf {library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-              f"kernel at {bound_ms / ms:.2%} of it; {launch.ctas} CTAs", flush=True)
-        timed[(rows, cols)] = dict(ms=ms, plain_ms=sum(plain) / 2, library_ms=library,
-                                   bound_ms=bound_ms, bound_by=bound_by)
+    timed = {(rows, cols): time_wide(tq, tq.panel_lq, "panel", rng, dev, rows, cols, label,
+                                     num_sms)
+             for rows, cols, label in ((128, 3586, "step panel"), (128, 6658, "latent step"),
+                                       (32, 3586, "leaf form"), (128, 1538, "white init panel"))}
     return dict(max_abs_err=worst, **timed[(128, 3586)])
+
+
+def time_wide(tq, wrapper, name, rng, dev, rows, cols, label, num_sms):
+    """Times of the panel kernel's launch through ``wrapper`` on a random f64
+    ``(rows, cols)`` slab, in turns: plain, kernel, kernel, plain;
+    torch.geqrf of the transposed slab (the same reflectors, no T) as the
+    library yardstick; and the bound."""
+    x = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+    xt = x.T.contiguous()
+    plain = [cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3)]
+    kernel = [cuda_ms(lambda: wrapper(x, 0), 20) for _ in range(2)]
+    plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
+    library = cuda_ms(lambda: torch.geqrf(xt), 20)
+    ms = sum(kernel) / 2
+    bound_ms, bound_by = panel_bound(rows, cols, 0, torch.float64)
+    launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
+    print(f"{name} {rows} x {cols} f64 ({label}): kernel {kernel} ms, plain {plain} ms, "
+          f"torch.geqrf {library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+          f"kernel at {bound_ms / ms:.2%} of it; {launch.ctas} CTAs of {launch.width} columns",
+          flush=True)
+    return dict(ms=ms, plain_ms=sum(plain) / 2, library_ms=library, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_gram(tgram, cuda_build, dev):
@@ -458,6 +504,63 @@ def phase_leaf(tq, dev):
     return dict(max_abs_err=worst, **timed[3586])
 
 
+def phase_leaf_lq(tq, dev):
+    """The LQ leaf route's launch (the panel kernel on one leaf of a 256-row
+    block, counted as leaf_lq) against its plain version at the large-N
+    shapes, the 256-row-block sweeps, and the leaves' times."""
+    rng = np.random.default_rng(3)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [("64 x 20257 (banded window of the N=1e4 sweeps)", 64, 20257, 0, ()),
+             ("64 x 20257 at off 192 (last leaf of a block)", 64, 20257, 192, ()),
+             ("64 x 30002 (first leaf of the N=1e4 update)", 64, 30002, 0, ()),
+             ("32 x 26626 (first leaf of a latent d=2048 step)", 32, 26626, 0, ()),
+             ("32 x 26626 at off 224, rows 3 and 17 zero", 32, 26626, 224, (3, 17)),
+             ("2 x 12290 (a 2-row last leaf)", 2, 12290, 0, ())]
+    worst = 0.0
+    for name, rows, cols, off, zero_rows in cases:
+        slab = rng.standard_normal((rows, cols))
+        slab[list(zero_rows)] = 0.0
+        x = torch.tensor(slab, device=dev)
+        before = tq.panel_lq.launches
+        lv, tT = tq.leaf_lq(x, off)
+        lv2, tT2 = tq.leaf_lq(x, off)
+        torch.cuda.synchronize()
+        check(tq.panel_lq.launches == before, f"leaf_lq {name}: counted as panel_lq")
+        same = torch.equal(lv, lv2) and torch.equal(tT, tT2)
+        lv_ref, tT_ref = tq.panel_lq_reference(x, off)
+        err = max((lv - lv_ref).abs().max().item(), (tT - tT_ref).abs().max().item())
+        tol = 1e-12 * np.abs(slab).max()
+        launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
+        print(f"leaf_lq vs plain, {name}: max|dLV|, |dT^T| {err:.3e} (tol {tol:.3e}); "
+              f"{launch.ctas} CTAs of {launch.width} columns in "
+              f"{'registers' if launch.registers else 'global memory'}; two launches bitwise "
+              f"equal: {same}", flush=True)
+        check(np.isfinite(err) and err <= tol, f"leaf_lq {name}: kernel disagrees")
+        check(same, f"leaf_lq {name}: two launches on the same input differ")
+        worst = max(worst, err)
+
+    # whole 256-row-block sweeps on the leaf route, at both leaf sizes
+    W = torch.tensor(rng.standard_normal((2050, 4100)), device=dev)
+    G = W @ W.T
+    for leaf in (32, 64):
+        before = (tq.leaf_lq.launches, tq.panel_lq.launches)
+        L = tq.blocked_lq_l(W, leaf=leaf, block=256)
+        torch.cuda.synchronize()
+        counts = (tq.leaf_lq.launches - before[0], tq.panel_lq.launches - before[1])
+        rel = ((L @ L.T - G).abs().max() / G.abs().max()).item()
+        expected = (leaf_launches(2050, 256, leaf), 0)
+        print(f"blocked_lq_l 2050 x 4100 at block 256, leaf {leaf}: (leaf_lq, panel_lq) "
+              f"launches {counts} (expected {expected}), max|L L^T - W W^T| / max|W W^T| = "
+              f"{rel:.3e} (tol 1e-12)", flush=True)
+        check(counts == expected, f"leaf route at leaf {leaf}: launch counts")
+        check(rel <= 1e-12 and torch.all(torch.triu(L, 1) == 0).item(),
+              f"leaf route at leaf {leaf}: Gram mismatch")
+
+    timed = {cols: time_wide(tq, tq.leaf_lq, "leaf_lq", rng, dev, 64, cols, label, num_sms)
+             for cols, label in ((20257, "banded window"), (30002, "update's first leaf"))}
+    return dict(max_abs_err=worst, **timed[20257])
+
+
 class Launches:
     """Per-path kernel launch counts: set to 0 just before a path, read just
     after it, and summed over the paths for the kernels' record."""
@@ -554,20 +657,34 @@ def run_solver(solver, pde, num_steps=NUM_STEPS):
     )
 
 
-def report_run(name, run, card_line, d=None, decays=True):
-    """No NaN (and, for heat, decay of the solution ``mean[0, :d]``); prints
-    init seconds and steps/s."""
+def report_run(name, run, card_line, d=None, decays=True, heat=None):
+    """Prints init seconds and steps/s; then no NaN and (for heat) decay of
+    the solution ``mean[0, :d]``. Given a fine-mesh ``heat`` problem, max|u|
+    must instead move the way ``(L u0)`` and the filter's initial
+    derivative both point at the initial peak (the module docstring)."""
     mean, cov = run["state"].y.mean, run["state"].y.cov_sqrtm
-    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()
-               and torch.isfinite(run["diffusion"])), f"{name}: NaN or inf")
-    u0, u = run["y0_mean"][0, :d].abs().max(), mean[0, :d].abs().max()
-    if decays:
-        check(u < u0, f"{name}: heat did not decay")
+    u0_vec = run["y0_mean"][0, :d]
+    u0, u = u0_vec.abs().max(), mean[0, :d].abs().max()
     info = run["info"]
     print(f"{name}: init {run['init_s']:.3f} s, {run['steps_per_s']:.2f} steps/s over "
           f"{info['num_steps']} steps of {info['num_attempted_steps']} attempts "
-          f"({run['steady_steps_per_s']:.2f} after the first), max|u| {u0.item():.6f} -> "
-          f"{u.item():.6f} [{card_line}]", flush=True)
+          f"({run['steady_steps_per_s']:.2f} after the first), max|u| {u0.item():.10f} -> "
+          f"{u.item():.10f} [{card_line}]", flush=True)
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()
+               and torch.isfinite(run["diffusion"])), f"{name}: NaN or inf")
+    if heat is not None:
+        peak = u0_vec.abs().argmax()
+        sign = u0_vec[peak].sign()
+        slope = (heat.L[peak] @ u0_vec * sign).item()
+        du0 = (run["y0_mean"][1, peak] * sign).item()
+        print(f"{name}: at the initial peak (L u0) = {slope:.6e} (row sum of L "
+              f"{heat.L[peak].sum().item():.6e}, |E_sqrtm row| "
+              f"{heat.E_sqrtm[peak].norm().item():.6e}), the filter's initial derivative "
+              f"{du0:.6e}, max|u| moved {(u - u0).item():.6e}", flush=True)
+        check((slope > 0) == (du0 > 0) and (u > u0).item() == (du0 > 0),
+              f"{name}: max|u| against the direction of (L u0) and the initial derivative")
+    elif decays:
+        check(u < u0, f"{name}: heat did not decay")
 
 
 def compare_runs(label, run, plain, d=None):
@@ -761,6 +878,128 @@ def phase_semilinear_latent(pt, dev, launches, card_line):
                  runs[None], d=22)
 
 
+def dx_adapted_heat(pt, dev, points, num_steps):
+    """heat_1d on ``points`` mesh points with the dx-adapted FD kernel, to
+    ``num_steps`` steps of DT."""
+    dx = 1.0 / (points - 1)
+    return pt.pde.examples.heat_1d_discretized(
+        dx=dx, tmax=num_steps * DT, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+        device=dev,
+    )
+
+
+def phase_latent_large(pt, dev, launches, card_line):
+    """LinearLatentForceEK1 with "householder" at d = 2048: the hooks sized
+    for 4096 points take 256-row blocks, so every block runs the leaf route
+    (32-row leaves). The init LQ has m + 4d = 10242 rows; each fused step's
+    m + 6d = 14338, each two-QR step's propagate 6d and update m + 6d. The
+    fused and the two-QR banded runs against the plain fused run."""
+    d = LATENT_LARGE_POINTS
+    heat = dx_adapted_heat(pt, dev, d, LATENT_LARGE_STEPS)
+    m = heat.L.shape[0] + heat.B.shape[0]
+    init = leaf_launches(m + 4 * d, 256, 32)
+    fused_step = leaf_launches(m + 6 * d, 256, 32)
+    two_qr_step = leaf_launches(6 * d, 256, 32) + fused_step
+    configs = {  # each with its leaf_lq launches
+        "householder (leaf route)": (
+            dict(factorization="householder"), init + LATENT_LARGE_STEPS * fused_step),
+        "householder two-QR banded (leaf route)": (
+            dict(factorization="householder", fused=False, propagate_band="banded"),
+            init + LATENT_LARGE_STEPS * two_qr_step),
+        "plain torch.linalg.qr": (dict(factorization=None), 0),
+    }
+    runs = {}
+    for name, (kwargs, expected) in configs.items():
+        launches.reset()
+        runs[name] = run_solver(pt.latent.LinearLatentForceEK1(
+            steprule=pt.odetools.step.Constant(DT), num_derivatives=NU,
+            spatial_kernel=prior(pt), **kwargs), heat, num_steps=LATENT_LARGE_STEPS)
+        launches.read(f"d={d} latent, {name}", {"leaf_lq": expected})
+    # at this mesh the heat rises (the module docstring)
+    for name, run in runs.items():
+        report_run(f"d={d} latent, {name}", run, card_line, d=d, heat=heat)
+    plain = runs.pop("plain torch.linalg.qr")
+    for name, run in runs.items():
+        compare_runs(f"d={d} latent: {name} vs plain path", run, plain, d=d)
+
+
+def phase_large_n(pt, dev, launches, card_line):
+    """bench.py's large-N point in f64 through the two-QR pipeline on the
+    leaf route, banded and interleaved, against the plain two-QR path:
+    N = 1e4, nu = 1, so D = 2e4 and m = 10002. The init update LQ has
+    m + 2d = 30002 rows, each step's propagate D and update m + D; every
+    256-row block runs 64-row leaves."""
+    d, n = LARGE_N, LARGE_NU + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heat = dx_adapted_heat(pt, dev, d, LARGE_STEPS)
+    torch.cuda.synchronize()
+    m, D = d + heat.B.shape[0], n * d
+    print(f"N={d} heat discretized in {time.perf_counter() - t0:.3f} s (m = {m}, D = {D})",
+          flush=True)
+    per_run = leaf_launches(m + 2 * d, 256, 64) + LARGE_STEPS * (
+        leaf_launches(D, 256, 64) + leaf_launches(m + D, 256, 64))
+    # the interleaved run re-triangularizes its (D, D) initial factor once
+    retriangularize = leaf_launches(D, 256, 64)
+    configs = {  # each with its leaf_lq launches
+        "householder two-QR banded (leaf route)": (
+            dict(factorization="householder", fused=False, propagate_band="banded"), per_run),
+        "householder two-QR interleaved (leaf route)": (
+            dict(factorization="householder", fused=False, propagate_band="interleaved"),
+            per_run + retriangularize),
+        "plain two-QR torch.linalg.qr": (dict(factorization=None, fused=False), 0),
+    }
+    solvers = {name: pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(DT), num_derivatives=LARGE_NU,
+        spatial_kernel=prior(pt), **kwargs) for name, (kwargs, _) in configs.items()}
+    runs, peaks = {}, {}
+    for name, solver in solvers.items():
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches.reset()
+        runs[name] = run_solver(solver, heat, num_steps=LARGE_STEPS)
+        launches.read(f"N={d} {name}", {"leaf_lq": configs[name][1]})
+        peaks[name] = (torch.cuda.max_memory_allocated(dev) / 2**30, held)
+    for name, run in runs.items():
+        report_run(f"N={d} {name}", run, card_line, heat=heat)  # as at d = 2048
+        peak, held = peaks[name]
+        print(f"N={d} {name}: peak memory {peak:.2f} GiB, of which {held:.2f} GiB held before "
+              f"the run (the problem and the earlier runs) [{card_line}]", flush=True)
+    plain = runs["plain two-QR torch.linalg.qr"]
+    for name in list(configs)[:2]:
+        compare_runs(f"N={d}: {name} vs plain two-QR path", runs[name], plain)
+
+    # one propagate and one update sweep of each path, from the final states
+    # (the interleaved propagate needs the triangular factor of its own run)
+    banded, interleaved = (solvers[name] for name in list(configs)[:2])
+    cache, hook = banded._cache, banded.factorization
+    p, p_inv = pt.ops.iwp.nordsieck_scales_1d(LARGE_NU, DT, dtype=torch.float64, device=dev)
+
+    def predicted(name):
+        return pt.ops.iwp.apply_stack_matrix(
+            cache.A1d, pt.ops.iwp.scale_stack(p_inv, runs[name]["state"].y.cov_sqrtm))
+
+    ACl, ACl_tri = predicted(list(configs)[0]), predicted(list(configs)[1])
+    apply_H = pt.white._measurement_operator(cache, cache.L, p, n)
+    Clp = hook.propagate.banded(ACl, cache.Ql)
+    HClp = apply_H(Clp)
+    sweeps = {
+        "propagate, banded leaf route": lambda: hook.propagate.banded(ACl, cache.Ql),
+        "propagate, interleaved leaf route": lambda: interleaved.factorization.propagate
+        .interleaved(ACl_tri, cache.Ql, n),
+        "update, banded leaf route": lambda: hook.update_from_products.blocks_banded(
+            HClp, Clp, cache.E_bc_sqrtm),
+        "propagate, torch.linalg.qr": lambda: pt.ops.sqrt.propagate_cholesky_factor(
+            ACl, cache.Ql),
+        "update, torch.linalg.qr": lambda: pt.ops.sqrt.update_sqrt_from_products_blocks(
+            HClp, Clp, cache.E_bc_sqrtm),
+    }
+    times = {name: cuda_ms(fn, 1) for name, fn in sweeps.items()}
+    print(f"N={d} sweeps (ms, CUDA events, one call after one warm-up): "
+          + ", ".join(f"{name} {ms:.1f}" for name, ms in times.items()) + f" [{card_line}]",
+          flush=True)
+
+
 def phase_build(cuda_build):
     """One nvcc per source, all started together."""
     def timed(name):
@@ -788,13 +1027,14 @@ def main():
     from pnmol_tpu_torch.ops import qr_householder as tq
 
     dev = torch.device("cuda", 0)
-    wrappers = {"panel_lq": tq.panel_lq, "gram_radial": tgram.gram_radial,
-                "leaf_qr": tq.leaf_qr}
+    wrappers = {"panel_lq": tq.panel_lq, "leaf_lq": tq.leaf_lq,
+                "gram_radial": tgram.gram_radial, "leaf_qr": tq.leaf_qr}
     phase_build(cuda_build)
 
     panel = phase_kernel(tq, dev)
     gram = phase_gram(tgram, cuda_build, dev)
     leaf = phase_leaf(tq, dev)
+    leaf_lq = phase_leaf_lq(tq, dev)
     launches = Launches(wrappers)
     white, latent = pt.white.LinearWhiteNoiseEK1, pt.latent.LinearLatentForceEK1
     # d = 6: every pre-array is one 128-row panel (white: init 20 rows, steps
@@ -816,11 +1056,14 @@ def main():
     phase_adaptive(pt, dev, launches, card_line)
     phase_semilinear_latent(pt, dev, launches, card_line)
     phase_latent_r_form(pt, tq, launches, heat, latent_plain, card_line)
+    phase_latent_large(pt, dev, launches, card_line)
+    phase_large_n(pt, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
 
     records = []
     for name, replaces, measured in (
         ("panel_lq", "pnmol_tpu/ops/qr_householder.py:535", panel),
+        ("leaf_lq", "pnmol_tpu/ops/qr_householder.py:350", leaf_lq),
         ("gram_radial", "pnmol_tpu/ops/pallas_gram.py:51", gram),
         ("leaf_qr", "pnmol_tpu/ops/qr_householder.py:75", leaf),
     ):

@@ -24,6 +24,19 @@ R-form step hook ``ops.qr_householder.make_householder_factorization()``,
 whose tall blocked QR runs the panel kernel of ``csrc/panel_lq.cu`` on the
 tall layout.
 
+Large meshes (above 2048 points) take their stencils from a native k-NN
+(``native/knn.cpp``, built with g++ at first use), and the solvers take
+the memory-light two-QR pipeline with ``fused=False`` (and
+``propagate_band="banded"`` or ``"interleaved"``). From 4096 points on,
+``"householder"`` sweeps 256-row blocks, more than one panel launch takes,
+so each block runs the leaf route: one launch of the panel kernel per leaf
+of 32 or 64 rows (``ops.qr_householder.leaf_lq``). The N = 1e4 point of
+``bench.py`` runs so on one GPU::
+
+    solver = pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(1e-3), num_derivatives=1,
+        factorization="householder", fused=False, propagate_band="banded")
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """

@@ -1,9 +1,10 @@
 """1-D rectangular meshes with neighbour queries (counterpart of
 :mod:`pnmol_tpu.mesh`).
 
-Neighbour search runs once at problem setup, on the host, as an exact
-NumPy brute-force k-NN over the float64 host copy of the points. Results
-become tensors on the mesh's device.
+Neighbour search runs once at problem setup, on the host, over the float64
+host copy of the points: an exact NumPy brute-force k-NN up to
+``_TREE_CUTOVER`` points, the native KD-tree (:mod:`pnmol_tpu_torch.native`)
+above. Results become tensors on the mesh's device.
 """
 
 from functools import cached_property
@@ -11,25 +12,17 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from pnmol_tpu_torch import config
+from pnmol_tpu_torch import config, native
 
 _TREE_CUTOVER = 2048
-
-
-def _check_brute_force_size(n):
-    # the JAX package switches to its native KD-tree above the cutover
-    if n > _TREE_CUTOVER:
-        raise NotImplementedError(
-            f"meshes of {n} > {_TREE_CUTOVER} points need the native k-NN, "
-            "which is not ported yet (ROADMAP queue 1, item 12)"
-        )
 
 
 def _knn_host(points: np.ndarray, queries: np.ndarray, k: int):
     """Indices of the k nearest neighbours for each query point (host)."""
     n = points.shape[0]
-    _check_brute_force_size(n)
     k = min(k, n)
+    if n > _TREE_CUTOVER:
+        return native.knn(points, queries, k)[0].astype(np.int64)
     d2 = ((queries[:, None, :] - points[None, :, :]) ** 2).sum(-1)
     idx = np.argpartition(d2, kth=k - 1, axis=1)[:, :k]
     order = np.take_along_axis(d2, idx, axis=1).argsort(axis=1)
@@ -67,7 +60,9 @@ class RectangularMesh:
     def fill_distance(self):
         """Largest distance from any point to its nearest distinct neighbour."""
         pts = self._points_host
-        _check_brute_force_size(pts.shape[0])
+        if pts.shape[0] > _TREE_CUTOVER:  # no (N, N) distance matrix
+            nn = pts[_knn_host(pts, pts, 2)[:, 1]]
+            return float(np.sqrt(((pts - nn) ** 2).sum(-1).max()))
         d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
         np.fill_diagonal(d2, np.inf)
         return float(np.sqrt(d2.min(axis=1).max()))

@@ -43,6 +43,39 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def library_path(name: str, source: pathlib.Path, flags: tuple) -> pathlib.Path:
+    """Where :func:`compile_library` puts ``lib<name>.so`` built from
+    ``source`` with ``flags``: ``_build/<name>-<hash>/``."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    return _BUILD_DIR / f"{name}-{digest[:16]}" / f"lib{name}.so"
+
+
+def compile_library(compiler: str, name: str, source: pathlib.Path, flags: tuple) -> pathlib.Path:
+    """Compile ``source`` with ``compiler`` and ``flags`` into
+    :func:`library_path` unless it is there already (the CUDA kernels here,
+    the host C++ of :mod:`pnmol_tpu_torch.native` too). Returns the path;
+    raises if the compiler is missing or fails."""
+    lib = library_path(name, source, flags)
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+                                  capture_output=True, text=True, timeout=600)
+        except FileNotFoundError as err:
+            raise RuntimeError(f"{name}: {compiler} not found; it cannot be built") from err
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: {compiler} failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
 def build(name: str, defines: tuple = ()) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` into a shared library (once per source and
     ``defines``, macros passed to ``nvcc`` as ``-D<define>``).
@@ -50,28 +83,10 @@ def build(name: str, defines: tuple = ()) -> pathlib.Path:
     Returns the library's path. Raises if ``nvcc`` is missing or the compile
     fails.
     """
-    source = _CSRC / f"{name}.cu"
     flags = (*_NVCC_FLAGS, *(f"-D{define}" for define in defines))
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
-    out_dir = _BUILD_DIR / f"{name}-{digest[:16]}"
-    lib = out_dir / f"lib{name}.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, str(source)],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+    source = _CSRC / f"{name}.cu"
+    lib = library_path(name, source, flags)
+    return lib if lib.exists() else compile_library(_nvcc(), name, source, flags)
 
 
 @functools.lru_cache(maxsize=None)

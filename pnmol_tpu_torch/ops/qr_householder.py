@@ -3,17 +3,24 @@
 Counterpart of :mod:`pnmol_tpu.ops.qr_householder`, in two halves.
 
 The LQ half (the ``factorization="householder"`` path) is the same
-compact-WY blocked Householder LQ: each ``(block, cols)``
-row panel is factorized by ONE panel-kernel launch (:func:`panel_lq`, which
-replaces the TPU kernels ``_block_lq_kernel`` and ``_leaf_lq_kernel``), and
-the rows below take the panel's reflectors as one rank-``block`` trailing
-update ``W - (W V^T) T V``, two plain matrix products.
+compact-WY blocked Householder LQ, swept one ``block`` of rows at a time.
+A block is factorized by one of two routes:
 
-The sweep is the plain shrinking block loop (the JAX ``superblocks = nb``
-form): after each panel the work matrix drops the panel's rows and columns,
-so every panel starts at diagonal offset 0. The TPU-only machinery of the
-JAX sweep (Mosaic lane quantization, scan superblocks, liveness barriers,
-leaf panels and their merge) has no counterpart here.
+* the block route: ONE panel-kernel launch on the ``(block, cols)`` panel
+  (:func:`panel_lq`, which replaces the TPU kernel ``_block_lq_kernel``);
+* the leaf route: one launch of the same kernel per ``leaf`` rows
+  (:func:`leaf_lq`, which replaces the TPU kernel ``_leaf_lq_kernel``), the
+  block's later rows taking each leaf's reflectors, then the leaves' T^T
+  merged into the block's.
+
+Either way the rows below take the block's reflectors as one rank-``block``
+trailing update ``W - (W V^T) T V``, two plain matrix products. The sweep is
+the plain shrinking block loop (the JAX ``superblocks = nb`` form), in place
+on one work buffer: after each block the work view drops the block's rows
+and columns, so every block starts at diagonal offset 0, and a banded input
+(``band=``) windows each block's work to the declared row support. The
+TPU-only machinery of the JAX sweep (Mosaic lane quantization, scan
+superblocks, liveness barriers) has no counterpart here.
 
 The R-form half (:func:`blocked_qr_r` and the step hook
 :func:`make_householder_factorization`) is the tall blocked Householder QR:
@@ -26,10 +33,10 @@ JAX sweep have no counterpart here. A tall slab's QR is the panel LQ of its
 transpose, transposed, so the leaf launch runs the panel kernel on the tall
 layout, spread over the SMs by the same rule.
 
-On a CPU tensor :func:`panel_lq` and :func:`leaf_qr` run their plain PyTorch
-versions :func:`panel_lq_reference` and :func:`leaf_qr_reference`; on a CUDA
-tensor they launch the panel kernel (built with ``nvcc`` from
-``csrc/panel_lq.cu`` at first use) or raise.
+On a CPU tensor :func:`panel_lq`, :func:`leaf_lq` and :func:`leaf_qr` run
+their plain PyTorch versions :func:`panel_lq_reference` and
+:func:`leaf_qr_reference`; on a CUDA tensor they launch the panel kernel
+(built with ``nvcc`` from ``csrc/panel_lq.cu`` at first use) or raise.
 """
 
 import ctypes
@@ -201,14 +208,20 @@ def _run_panel_kernel(symbol, argtypes, slab, reflectors, launch, *sizes):
     return out, factor
 
 
+def _launch_wide(slab, off, launch):
+    """One launch of the panel kernel on a CUDA ``slab`` with the shape
+    ``launch``, counted by the caller; raise what the kernel does not take."""
+    off = int(off)
+    _check_panel(slab, off)
+    rows, cols = slab.shape
+    return _run_panel_kernel("panel_lq", _PANEL_LQ_ARGS, slab, rows, launch, rows, cols, off)
+
+
 def _launch_panel_lq(slab, off, launch):
     """Launch the panel kernel on a CUDA ``slab`` with the shape ``launch``
     (:func:`panel_lq`'s, or another CTA count's for timing) and add one to
     ``panel_lq.launches``; raise what the kernel does not take."""
-    off = int(off)
-    _check_panel(slab, off)
-    rows, cols = slab.shape
-    lv, tT = _run_panel_kernel("panel_lq", _PANEL_LQ_ARGS, slab, rows, launch, rows, cols, off)
+    lv, tT = _launch_wide(slab, off, launch)
     panel_lq.launches += 1
     return lv, tT
 
@@ -216,45 +229,128 @@ def _launch_panel_lq(slab, off, launch):
 panel_lq.launches = 0
 
 
+def leaf_lq(slab, off):
+    """Householder LQ of one leaf of the leaf route: a ``(leaf, cols)`` slab
+    whose diagonal starts at lane ``off`` (see :func:`panel_lq_reference`).
+
+    The same kernel as :func:`panel_lq` (the port of the TPU kernel
+    ``_leaf_lq_kernel``), launched with the shape of
+    :func:`panel_lq_launch`, but counted apart: a CUDA launch adds one to
+    ``leaf_lq.launches`` and never to ``panel_lq.launches``. CPU tensors take
+    the plain version; anything the kernel does not take raises.
+    """
+    if slab.device.type == "cpu":
+        return panel_lq_reference(slab, off)
+    _check_panel(slab, off)
+    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+    rows, cols = slab.shape
+    lv, tT = _launch_wide(slab, off, panel_lq_launch(rows, cols, slab.element_size(), num_sms))
+    leaf_lq.launches += 1
+    return lv, tT
+
+
+leaf_lq.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Blocked sweep and factorization hooks
 # ---------------------------------------------------------------------------
 
 
-def _reflectors(lv):
-    """Reflector rows (unit diagonal explicit) of a panel output at off 0."""
-    V = torch.triu(lv, diagonal=1)
-    V.diagonal().fill_(1.0)
+def _reflectors(lv, off=0):
+    """Reflector rows (unit diagonal explicit) of a panel output whose
+    diagonal starts at lane ``off``."""
+    V = torch.triu(lv, diagonal=off + 1)
+    V.diagonal(off).fill_(1.0)
     return V
 
 
-def blocked_lq_l(W, *, block: int = 128):
-    """Lower-triangular L with ``L L^T = W W^T`` from one Householder LQ of
-    wide ``W`` (rows <= cols), shape (rows, rows).
+def panel_takes_rows(rows, itemsize):
+    """Whether one panel-kernel launch takes a panel of ``rows`` rows: its
+    T^T CTA holds ``rows x (rows + 2)`` values in shared memory
+    (:func:`panel_lq_shared_bytes`), so at most 169 rows in f64 and 240 in
+    f32."""
+    return rows * (rows + 2) * itemsize <= SHARED_BYTES_PER_CTA
 
-    One :func:`panel_lq` call per ``block`` rows (``ceil(rows / block)`` in
-    all), each followed by the trailing update of the rows below. The signs
-    of L's diagonal follow the reflectors' convention (``beta = -sign(alpha)
-    ||x||``), as in :func:`pnmol_tpu.ops.qr_householder.blocked_lq_l`.
-    """
-    Nr, M = W.shape
+
+def _leaf_route(blk, leaf):
+    """One block ``blk`` (b, cols), diagonal at lane 0, factorized leaf by
+    leaf (the leaf branch of the JAX ``_blocked_lq_l_impl``): one
+    :func:`leaf_lq` per ``leaf`` rows, its slab's diagonal at lane ``jl``;
+    the block's later rows take each leaf's reflectors; the leaves' T^T merge
+    as ``T^T12 = -T2^T (V1 V2^T)^T T1^T``. Returns ``(LV, V, T^T)``: LV and
+    T^T with the contract of :func:`panel_lq` on the whole block, V its
+    reflector rows."""
+    b = blk.shape[0]
+    lv = blk.clone()
+    V = torch.zeros_like(blk)
+    tT = blk.new_zeros((b, b))
+    for jl in range(0, b, leaf):
+        je = min(jl + leaf, b)
+        leaf_lv, t = leaf_lq(lv[jl:je], jl)
+        lv[jl:je] = leaf_lv
+        v = V[jl:je]
+        v.copy_(_reflectors(leaf_lv, jl))
+        if je < b:  # U T V with U = rest V^T, and t = T^T
+            rest = lv[je:]
+            rest.addmm_((rest @ v.T) @ t.T, v, alpha=-1)
+        tT[jl:je, jl:je] = t
+        if jl:
+            tT[jl:je, :jl] = -(t @ (V[:jl] @ v.T).T) @ tT[:jl, :jl]
+    return lv, V, tT
+
+
+def _lq_in_place(work, *, leaf, block, band):
+    """:func:`blocked_lq_l`'s sweep on ``work``, which it overwrites."""
+    Nr, M = work.shape
     if M < Nr:
-        raise ValueError(f"blocked_lq_l requires cols >= rows, got {tuple(W.shape)}")
-    L = W.new_zeros((Nr, Nr))
-    work = W
+        raise ValueError(f"blocked_lq_l requires cols >= rows, got {tuple(work.shape)}")
+    leaves = not panel_takes_rows(block, work.element_size())
     done = 0
     while done < Nr:
         b = min(block, Nr - done)
-        lv, tT = panel_lq(work[:b].contiguous(), 0)
-        L[done:done + b, done:done + b] = torch.tril(lv[:, :b])
-        rest = work[b:]
-        if rest.shape[0]:
+        # the block's window: every column past it is an exact zero of the
+        # block's rows (band=), so the reflectors never touch it
+        win = M - done
+        if band is not None:
+            win = min(win, band[0] + (band[1] - 1) * done + band[1] * b)
+        blk = work[done:done + b, done:done + win].contiguous()
+        if leaves:
+            lv, V, tT = _leaf_route(blk, leaf)
+        else:
+            lv, tT = panel_lq(blk, 0)
             V = _reflectors(lv)
-            rest = rest - ((rest @ V.T) @ tT.T) @ V
-            L[done + b:, done:done + b] = rest[:, :b]
-            work = rest[:, b:]
+        work[done:done + b, done:done + b] = lv[:, :b]
+        rest = work[done + b:, done:done + win]
+        if rest.shape[0]:  # in place; its first b columns become L's
+            rest.addmm_((rest @ V.T) @ tT.T, V, alpha=-1)
         done += b
-    return L
+    return torch.tril(work[:, :Nr])
+
+
+def blocked_lq_l(W, *, leaf: int = 32, block: int = 128, band=None):
+    """Lower-triangular L with ``L L^T = W W^T`` from one Householder LQ of
+    wide ``W`` (rows <= cols), shape (rows, rows).
+
+    ``ceil(rows / block)`` blocks, each factorized by the block route (one
+    :func:`panel_lq`) or the leaf route (one :func:`leaf_lq` per ``leaf``
+    rows, ``ceil(b / leaf)`` for a block of b rows), then the trailing
+    update of the rows below. The sweep takes the block route wherever the
+    panel kernel takes ``block`` rows (:func:`panel_takes_rows`: 128 does,
+    256 does not) and the leaf route otherwise, for every block of the
+    sweep. (The JAX sweep picks by the slab's bytes, a limit of the TPU's
+    VMEM that means nothing on the GPU; here the limit is the shared memory
+    of the kernel's T^T CTA.)
+
+    ``band=(b0, slope)`` declares that row ``r`` of ``W`` has exact zeros in
+    every column ``>= b0 + slope * r`` (the caller guarantees it): each
+    block's work is then windowed to its rows' support and the columns past
+    it stay untouched, which changes the result only by rounding.
+
+    The signs of L's diagonal follow the reflectors' convention (``beta =
+    -sign(alpha) ||x||``), as in :func:`pnmol_tpu.ops.qr_householder.blocked_lq_l`.
+    """
+    return _lq_in_place(W.clone(), leaf=leaf, block=block, band=band)
 
 
 def _gain_solve_lower(L1, L21):
@@ -270,61 +366,125 @@ def _check_pair_columns(pair_columns):
         )
 
 
-def make_householder_update_from_products(*, block: int = 128,
+def _lq_blocks(top, bottom, m, band, sweep):
+    """``(L3, L21, L1)`` of the LQ of the fresh pre-array ``[top; bottom]``
+    (m top rows), swept in place."""
+    L = _lq_in_place(torch.cat((top, bottom), dim=0), band=band, **sweep)
+    return L[m:, m:], L[m:, :m], L[:m, :m]
+
+
+def make_householder_update_from_products(*, leaf: int = 32, block: int = 128,
                                           pair_columns: bool = False):
     """Householder-LQ drop-in for the sqrt update from products:
     ``(HC, C, R) -> (posterior_factor, gain, innovation_factor)`` through the
-    LQ of ``[[HC, R], [C, 0]]``; ``.blocks`` returns the raw factor blocks
-    ``(L3, L21, L1)`` without the gain solve."""
+    LQ of ``[[HC, R], [C, 0]]`` (sweep options as in :func:`blocked_lq_l`).
+    ``.blocks`` returns the raw factor blocks ``(L3, L21, L1)`` without the
+    gain solve; ``.blocks_banded`` the same for a LOWER-TRIANGULAR ``R``
+    (true for every measurement-noise factor of the solvers), whose
+    pre-array rows end at column ``D + i``: ``band=(D + 1, 1)``."""
     _check_pair_columns(pair_columns)
+    sweep = dict(leaf=leaf, block=block)
+
+    def _blocks(HC, C, meascov_sqrtm, band):
+        m, D = HC.shape
+        top = torch.cat((HC, meascov_sqrtm), dim=1)
+        bottom = torch.cat((C, C.new_zeros((D, m))), dim=1)
+        return _lq_blocks(top, bottom, m, band, sweep)
 
     def blocks(HC, C, meascov_sqrtm):
-        m, D = HC.shape
-        W = torch.cat(
-            (
-                torch.cat((HC, meascov_sqrtm), dim=1),
-                torch.cat((C, C.new_zeros((D, m))), dim=1),
-            ),
-            dim=0,
-        )
-        L = blocked_lq_l(W, block=block)
-        return L[m:, m:], L[m:, :m], L[:m, :m]
+        return _blocks(HC, C, meascov_sqrtm, None)
+
+    def blocks_banded(HC, C, meascov_sqrtm):
+        return _blocks(HC, C, meascov_sqrtm, (HC.shape[1] + 1, 1))
 
     def update(HC, C, meascov_sqrtm):
         L3, L21, L1 = blocks(HC, C, meascov_sqrtm)
         return L3, _gain_solve_lower(L1, L21), L1
 
     update.blocks = blocks
+    update.blocks_banded = blocks_banded
     return update
 
 
-def make_householder_lq_factorization(*, block: int = 128,
+def make_householder_propagate(*, leaf: int = 32, block: int = 128,
+                               pair_columns: bool = False):
+    """Householder-LQ drop-in for the sqrt propagate: the lower factor of
+    ``S1 S1^T + S2 S2^T`` from one LQ of ``[S1 S2]`` (sweep options as in
+    :func:`blocked_lq_l`), with two structured variants:
+
+    * ``.banded(S1, S2)`` for a LOWER-TRIANGULAR ``S2`` (the point-major
+      process-noise factor): row ``r`` ends at column ``D1 + r``,
+      ``band=(D1 + 1, 1)``;
+    * ``.interleaved(S1, S2, q)`` for ``S1`` also block-banded in ``q x q``
+      point blocks (``A Cl`` with ``Cl`` lower-triangular): the two
+      factors' point blocks interleaved by a column gather give row support
+      ``<= 2 r + q``, ``band=(2 q, 2)``.
+    """
+    _check_pair_columns(pair_columns)
+    sweep = dict(leaf=leaf, block=block)
+
+    def propagate(S1, S2):
+        return _lq_in_place(torch.cat((S1, S2), dim=1), band=None, **sweep)
+
+    def banded(S1, S2):
+        return _lq_in_place(torch.cat((S1, S2), dim=1), band=(S1.shape[1] + 1, 1), **sweep)
+
+    def interleaved(S1, S2, q):
+        D1 = S1.shape[1]
+        idx = (torch.arange(D1 // q, device=S1.device)[:, None] * q
+               + torch.arange(q, device=S1.device)[None, :])
+        perm = torch.cat((idx, D1 + idx), dim=1).reshape(-1)
+        return _lq_in_place(torch.cat((S1, S2), dim=1)[:, perm], band=(2 * q, 2), **sweep)
+
+    propagate.banded = banded
+    propagate.interleaved = interleaved
+    return propagate
+
+
+def make_householder_lq_factorization(*, leaf: int = 32, block: int = 128,
                                       pair_columns: bool = False):
     """A ``factorization=`` hook for the white-noise step: the fused
     pre-array ``W = [[HACl, HQl, E], [ACl, Ql, 0]]`` factorized by
-    :func:`blocked_lq_l`. Same contract as the fused predict-update
-    ``(HACl, ACl, HQl, Ql, R) -> (posterior_factor, gain,
-    innovation_factor)``; ``.blocks`` returns ``(L3, L21, L1)`` without the
-    gain solve (the step only needs ``K z = L21 (L1^{-1} z)``)."""
+    :func:`blocked_lq_l` (sweep options as there). Same contract as the
+    fused predict-update ``(HACl, ACl, HQl, Ql, R) -> (posterior_factor,
+    gain, innovation_factor)``; ``.blocks`` returns ``(L3, L21, L1)``
+    without the gain solve (the step only needs ``K z = L21 (L1^{-1} z)``),
+    ``.blocks_banded`` the same for a LOWER-TRIANGULAR ``R``
+    (``band=(2D + 1, 1)``).
+
+    The two-QR pipeline's primitives ride along: ``.propagate``
+    (:func:`make_householder_propagate`), ``.update_from_products``
+    (:func:`make_householder_update_from_products`), and ``.tri(C)``, the
+    lower factor with ``C``'s Gram, with which the solvers re-triangularize
+    the initial factor for the interleaved propagate.
+    """
     _check_pair_columns(pair_columns)
+    sweep = dict(leaf=leaf, block=block)
+
+    def _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, band):
+        m, D = HACl.shape
+        top = torch.cat((HACl, HQl, meascov_sqrtm), dim=1)
+        bottom = torch.cat((ACl, Ql, ACl.new_zeros((D, m))), dim=1)
+        return _lq_blocks(top, bottom, m, band, sweep)
 
     def blocks(HACl, ACl, HQl, Ql, meascov_sqrtm):
-        m, D = HACl.shape
-        W = torch.cat(
-            (
-                torch.cat((HACl, HQl, meascov_sqrtm), dim=1),
-                torch.cat((ACl, Ql, ACl.new_zeros((D, m))), dim=1),
-            ),
-            dim=0,
-        )
-        L = blocked_lq_l(W, block=block)
-        return L[m:, m:], L[m:, :m], L[:m, :m]
+        return _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, None)
+
+    def blocks_banded(HACl, ACl, HQl, Ql, meascov_sqrtm):
+        return _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, (2 * HACl.shape[1] + 1, 1))
 
     def factorization(HACl, ACl, HQl, Ql, meascov_sqrtm):
         L3, L21, L1 = blocks(HACl, ACl, HQl, Ql, meascov_sqrtm)
         return L3, _gain_solve_lower(L1, L21), L1
 
+    def tri(C):
+        return blocked_lq_l(C, **sweep)
+
     factorization.blocks = blocks
+    factorization.blocks_banded = blocks_banded
+    factorization.tri = tri
+    factorization.propagate = make_householder_propagate(**sweep)
+    factorization.update_from_products = make_householder_update_from_products(**sweep)
     return factorization
 
 

@@ -1,12 +1,12 @@
-"""Square-root Kalman factor blocks through ``torch.linalg.qr``.
+"""Square-root Kalman factors through ``torch.linalg.qr``.
 
-Counterpart of the block-returning functions of :mod:`pnmol_tpu.ops.sqrt`:
-the plain pipeline that the Householder-LQ kernel path
-(:mod:`pnmol_tpu_torch.ops.qr_householder`) is held against. One QR of the
-stacked pre-array gives an upper factor whose blocks are the innovation
-factor, the cross factor and the posterior factor; both functions return
-them transposed to lower form, ``(posterior (D, D), L21 (D, m), L1 (m, m))``
-with ``S_xz = L21 L1^T``.
+Counterpart of the propagate and the block-returning functions of
+:mod:`pnmol_tpu.ops.sqrt`: the plain pipeline that the Householder-LQ kernel
+path (:mod:`pnmol_tpu_torch.ops.qr_householder`) is held against. One QR of
+the stacked pre-array gives an upper factor whose blocks are the innovation
+factor, the cross factor and the posterior factor; the update functions
+return them transposed to lower form, ``(posterior (D, D), L21 (D, m), L1
+(m, m))`` with ``S_xz = L21 L1^T``.
 """
 
 import torch
@@ -15,6 +15,12 @@ import torch
 def triu_qr(mat):
     """Upper triangular factor of a QR decomposition, shape (min(M,N), N)."""
     return torch.linalg.qr(mat, mode="r")[1]
+
+
+def propagate_cholesky_factor(S1, S2):
+    """Lower factor of ``S1 S1^T + S2 S2^T`` from one QR of the stacked
+    roots ``[S1^T; S2^T]`` (the two-QR pipeline's plain propagate)."""
+    return triu_qr(torch.cat((S1.T, S2.T), dim=0)).T
 
 
 def update_sqrt_from_products_blocks(HC, C, meascov_sqrtm):

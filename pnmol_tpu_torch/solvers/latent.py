@@ -10,7 +10,8 @@ points with the block-diagonal spatial factor
 step is the white solver's fused pipeline with a latent-aware measurement
 operator. The step carries an ``H Q H^T`` error estimate, so adaptive step
 rules work here too. Its pre-array is twice the white one in both
-dimensions; ``"householder"`` sizes its hooks for ``2d``.
+dimensions; ``"householder"`` sizes its hooks for ``2d``. The two-QR
+pipeline (``fused=False``, ``propagate_band``) is the white solver's.
 """
 
 import functools
@@ -23,9 +24,8 @@ from pnmol_tpu_torch.solvers import pdefilter
 from pnmol_tpu_torch.solvers.white import (
     FusedFactorizationFilter,
     _calibrate_and_update,
-    _factorize,
     _linearize,
-    check_init_size,
+    _predict_update,
     reduced_init_pde_update,
     structured_init_y0,
 )
@@ -57,11 +57,11 @@ def _measurement_operator_latent(cache, G, p, n, d):
 
 
 def latent_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
-                        f=None, df=None, linear=True, factorization=None,
-                        ek_order=1):
+                        f=None, df=None, linear=True, factorization=None, fused=True,
+                        propagate_band=None, ek_order=1):
     """One latent-force EK{0,1} step: ``(mean (n, 2d), cov (2D, 2D), t_next,
     dt) -> (mean, cov, error (d,), reference (d,), diffusion_sq ())``, with
-    the factorization hooks of
+    the factorization hooks and pipelines of
     :func:`pnmol_tpu_torch.solvers.white.white_attempt_step` and a zero
     measurement-noise block."""
     n = num_derivatives + 1
@@ -95,7 +95,8 @@ def latent_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     # [Predict + update covariance] (noise-free measurement)
     ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
     zeros_R = ACl.new_zeros((m_dim, m_dim))
-    Cl_new, L21, K, Sl = _factorize(factorization, apply_H(ACl), ACl, HQl, cache.Ql, zeros_R)
+    Cl_new, L21, K, Sl = _predict_update(factorization, fused, propagate_band, apply_H, ACl,
+                                         HQl, cache.Ql, zeros_R, n)
 
     # [Calibrate + mean update] and [Un-precondition]
     M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
@@ -132,7 +133,6 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
 
     def initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
-        check_init_size(d)
         # hooks sized for the stacked dimension: the latent pre-array is the
         # white one at 2d points
         update_blocks = self._init_update_blocks(d, 2 * d)
@@ -178,6 +178,7 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         m0, C0 = reduced_init_pde_update(
             [B0] + [B1] * (n - 1), HCsub, nugget_pde, z_pde, u0_stack, update_blocks
         )
+        C0 = self._initial_factor(C0)
 
         # [Step cache] the stacked prior as one IWP over 2d points
         self.state_iwp = iwp.IntegratedWienerTransition(
@@ -197,7 +198,8 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         self._step_fn = functools.partial(
             latent_attempt_step, self._cache,
             num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-            factorization=self.factorization, ek_order=self.EK_ORDER,
+            factorization=self.factorization, fused=self.fused,
+            propagate_band=self.propagate_band, ek_order=self.EK_ORDER,
         )
 
         # point-major glue: [state (n, d) | latent (n, d)] along the last axis

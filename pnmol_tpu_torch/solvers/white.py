@@ -8,7 +8,9 @@ and each step runs ONE fused pre-array factorization: ``torch.linalg.qr``
 (``factorization=None``), the Householder LQ with the CUDA panel kernel
 (``factorization="householder"``), or a hook such as the R-form Householder
 QR with the CUDA leaf kernel
-(:func:`pnmol_tpu_torch.ops.qr_householder.make_householder_factorization`).
+(:func:`pnmol_tpu_torch.ops.qr_householder.make_householder_factorization`);
+or, with ``fused=False``, the two-QR pipeline: one propagate LQ and one
+update LQ, the large-N form (optionally banded, ``propagate_band``).
 The state lives in the point-major Nordsieck layout of
 :mod:`pnmol_tpu_torch.ops.iwp`, so the measurement matrix ``H`` is never
 materialized.
@@ -62,19 +64,50 @@ def _linearize(pde_f, pde_df, L, t, m_at, linear: bool, ek_order: int = 1):
     return Jx + L, Jx @ m_at - fx
 
 
-def _factorize(factorization, HACl, ACl, HQl, Ql, E):
-    """The fused predict-update factorization, as ``(posterior factor, L21,
-    K, Sl)`` with exactly one of ``L21`` (raw blocks, ``S_xz = L21 Sl^T``)
-    and ``K`` (the legacy gain contract of a hook without ``.blocks``)."""
-    blocks = (
-        sqrt.fused_predict_update_blocks if factorization is None
-        else getattr(factorization, "blocks", None)
-    )
-    if blocks is not None:
+def _predict_update(factorization, fused, propagate_band, apply_H, ACl, HQl, Ql, E, n):
+    """Predict and update the covariance factor, as ``(posterior factor,
+    L21, K, Sl)`` with exactly one of ``L21`` (raw blocks, ``S_xz = L21
+    Sl^T``) and ``K`` (the legacy gain contract of a hook without
+    ``.blocks``). The branches in the JAX step's order: a hook with
+    ``.propagate`` and ``fused=False`` runs the two-QR pipeline (its
+    propagate ``.interleaved`` or ``.banded`` where ``propagate_band`` asks,
+    its update ``.blocks_banded`` for any band); any other hook the fused
+    pre-array (``.blocks_banded`` for any band); no hook the fused
+    ``torch.linalg.qr``, or with ``fused=False`` the plain propagate and
+    plain update. ``n`` is the point block of the interleaving."""
+    if factorization is not None and not fused and hasattr(factorization, "propagate"):
+        prop = factorization.propagate
+        if propagate_band == "interleaved" and hasattr(prop, "interleaved"):
+            Clp = prop.interleaved(ACl, Ql, n)
+        elif propagate_band is not None and hasattr(prop, "banded"):
+            Clp = prop.banded(ACl, Ql)
+        else:
+            Clp = prop(ACl, Ql)
+        HClp = apply_H(Clp)
+        upd = factorization.update_from_products
+        if propagate_band is not None and hasattr(upd, "blocks_banded"):
+            blocks = upd.blocks_banded
+        else:
+            blocks = getattr(upd, "blocks", sqrt.update_sqrt_from_products_blocks)
+        C, L21, Sl = blocks(HClp, Clp, E)
+        return C, L21, None, Sl
+    if factorization is not None:
+        HACl = apply_H(ACl)
+        if propagate_band is not None and hasattr(factorization, "blocks_banded"):
+            blocks = factorization.blocks_banded
+        else:
+            blocks = getattr(factorization, "blocks", None)
+        if blocks is None:
+            C, K, Sl = factorization(HACl, ACl, HQl, Ql, E)
+            return C, None, K, Sl
         C, L21, Sl = blocks(HACl, ACl, HQl, Ql, E)
         return C, L21, None, Sl
-    C, K, Sl = factorization(HACl, ACl, HQl, Ql, E)
-    return C, None, K, Sl
+    if fused:
+        C, L21, Sl = sqrt.fused_predict_update_blocks(apply_H(ACl), ACl, HQl, Ql, E)
+    else:
+        Clp = sqrt.propagate_cholesky_factor(ACl, Ql)
+        C, L21, Sl = sqrt.update_sqrt_from_products_blocks(apply_H(Clp), Clp, E)
+    return C, L21, None, Sl
 
 
 def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim):
@@ -91,8 +124,8 @@ def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim):
 
 
 def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
-                       f=None, df=None, linear=True, factorization=None,
-                       meascov_dt_scaled=False, ek_order=1):
+                       f=None, df=None, linear=True, factorization=None, fused=True,
+                       propagate_band=None, meascov_dt_scaled=False, ek_order=1):
     """One white-noise EK{0,1} step.
 
     Returns ``(mean (n, d), cov_sqrtm (D, D), error_estimate (d,),
@@ -101,9 +134,10 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     ``t_next``. ``factorization`` is ``None`` (the fused pre-array QR), a
     hook with a ``.blocks`` attribute returning ``(posterior factor, L21,
     Sl)``, or a hook without one returning ``(posterior factor, gain, Sl)``
-    (the legacy gain contract). ``meascov_dt_scaled`` uses the measurement
-    noise factor ``sqrt(dt) E`` (the discretization error as a white noise
-    in time).
+    (the legacy gain contract); ``fused`` and ``propagate_band`` choose the
+    pipeline (see :func:`_predict_update`). ``meascov_dt_scaled`` uses the
+    measurement noise factor ``sqrt(dt) E`` (the discretization error as a
+    white noise in time).
     """
     n = num_derivatives + 1
     d = mean.shape[1]
@@ -135,7 +169,8 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
     # [Predict + update covariance]: the gain L21 Sl^{-1} is never formed
     ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
-    Cl_new, L21, K, Sl = _factorize(factorization, apply_H(ACl), ACl, HQl, cache.Ql, E_bc)
+    Cl_new, L21, K, Sl = _predict_update(factorization, fused, propagate_band, apply_H, ACl,
+                                         HQl, cache.Ql, E_bc, n)
 
     # [Calibrate + mean update] and [Un-precondition]
     M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
@@ -193,46 +228,45 @@ def point_major_blockdiag(blocks):
 
 def resolve_householder_hooks(d: int, *, pair_columns: bool = False):
     """(step factorization, init update) Householder-LQ hooks sized for a
-    problem with ``d`` state points."""
+    problem with ``d`` state points (the latent solvers pass 2d), as the JAX
+    package sizes them: blocks of 256 rows from 4096 points on (else 128),
+    leaves of 64 rows from 8192 on (else 32). The panel kernel takes 128-row
+    blocks in one launch; 256-row blocks take the leaf route, one launch per
+    leaf (:func:`pnmol_tpu_torch.ops.qr_householder.blocked_lq_l`)."""
+    leaf = 64 if d >= 8192 else 32
     block = 256 if d >= 4096 else 128
     factorization = qr_householder.make_householder_lq_factorization(
-        block=block, pair_columns=pair_columns
+        leaf=leaf, block=block, pair_columns=pair_columns
     )
-    init_update = qr_householder.make_householder_update_from_products(block=block)
+    init_update = qr_householder.make_householder_update_from_products(leaf=leaf, block=block)
     return factorization, init_update
-
-
-def check_init_size(d):
-    """Raise where the initialization needs the blocked triangular solves."""
-    if d >= 4096:
-        raise NotImplementedError(
-            "initialization at d >= 4096 needs the blocked triangular "
-            "solves, which are not ported yet (ROADMAP queue 1, item 12)"
-        )
 
 
 class FusedFactorizationFilter(pdefilter.PDEFilter):
     """The factorization options both solver families share.
 
-    ``factorization``: ``None`` (fused pre-array ``torch.linalg.qr``),
-    ``"householder"`` (the blocked Householder LQ with the CUDA panel
-    kernel, for the step AND the initialization update), or a step hook
+    ``factorization``: ``None`` (``torch.linalg.qr``), ``"householder"``
+    (the blocked Householder LQ with the CUDA panel kernel, for the step AND
+    the initialization update, with the blocks and leaves of
+    :func:`resolve_householder_hooks`), or a step hook
     (``make_householder_lq_factorization``, or the R-form
     ``make_householder_factorization`` with the CUDA leaf kernel, from
     :mod:`pnmol_tpu_torch.ops.qr_householder`); a hook leaves the
-    initialization on the plain update, as in the JAX solvers. The two-QR
-    pipeline (``fused=False``, ``propagate_band``) and steady-state mode
-    raise ``NotImplementedError``.
+    initialization on the plain update, as in the JAX solvers.
+
+    ``fused=False`` runs the two-QR pipeline: a propagate LQ and an update
+    LQ through the hook's ``.propagate`` and ``.update_from_products``
+    (``"householder"`` has both), or with no hook ``torch.linalg.qr`` of each.
+    ``propagate_band`` ``"banded"`` windows both sweeps to the pre-arrays'
+    triangular support; ``"interleaved"`` also interleaves the propagate's
+    point blocks, for which ``initialize`` re-triangularizes the initial
+    factor. With ``fused=True`` a band asks the hook for its banded fused
+    pre-array. Steady-state mode raises ``NotImplementedError``.
     """
 
     def __init__(self, *args, factorization=None, fused=True, propagate_band=None,
                  steady_state=False, **kwargs):
         super().__init__(*args, **kwargs)
-        if not fused or propagate_band is not None:
-            raise NotImplementedError(
-                "the two-QR pipeline (fused=False, propagate_band) is not "
-                "ported yet (ROADMAP queue 1, item 12)"
-            )
         if steady_state or isinstance(steady_state, dict):
             raise NotImplementedError(
                 "steady-state mode is not ported yet (ROADMAP queue 1, item 15)"
@@ -240,6 +274,8 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
         self._factorization_spec = factorization
         self._factorization_d = None
         self.factorization = None if factorization == "householder" else factorization
+        self.fused = fused
+        self.propagate_band = propagate_band
         self._init_update = None
         self._cache = None
         self._step_fn = None
@@ -254,6 +290,15 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
         if self._init_update is None:
             return sqrt.update_sqrt_from_products_blocks
         return self._init_update.blocks
+
+    def _initial_factor(self, C0):
+        """The initial factor; for the interleaved propagate of the two-QR
+        pipeline a lower-triangular one with its Gram (its precondition):
+        the hook's ``.tri``, else the transposed R of ``torch.linalg.qr(C0.T)``."""
+        if self.propagate_band != "interleaved" or self.fused:
+            return C0
+        tri = getattr(self.factorization, "tri", None)
+        return tri(C0) if tri is not None else torch.linalg.qr(C0.T, mode="r")[1].T
 
     def _step_function(self, pde):
         return self._step_fn
@@ -284,7 +329,6 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
 
     def initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
-        check_init_size(d)
         update_blocks = self._init_update_blocks(d, d)
         f = getattr(pde, "f", None)
         df = getattr(pde, "df", None)
@@ -330,6 +374,7 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         m0, C0 = reduced_init_pde_update(
             [C00] + [B1] * (n - 1), HCsub, E_bc_nugget, z_pde, u0, update_blocks
         )
+        C0 = self._initial_factor(C0)
 
         self._cache = WhiteSolverCache(
             A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
@@ -337,7 +382,8 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         self._step_fn = functools.partial(
             white_attempt_step, self._cache,
             num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-            factorization=self.factorization,
+            factorization=self.factorization, fused=self.fused,
+            propagate_band=self.propagate_band,
             meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
         )
         self.iwp = trans

@@ -121,6 +121,47 @@ def test_blocked_sweep_of_the_latent_step_pre_array_matches_the_gram(cuda):
     assert torch.all(torch.triu(L, 1) == 0).item()
 
 
+@pytest.mark.parametrize("leaf", [32, 64])
+def test_256_row_blocks_take_the_leaf_route(cuda, leaf):
+    """The blocks that the panel kernel cannot take in one launch (256 rows,
+    from 4096 points on) run the leaf route: ceil(b / leaf) leaf_lq launches
+    a block and no panel_lq launch, equal to the plain version entry by
+    entry (the same reflectors)."""
+    W = np.random.default_rng(leaf).standard_normal((300, 700))
+    W[7] = 0.0
+    before = (tq.leaf_lq.launches, tq.panel_lq.launches)
+    L = tq.blocked_lq_l(torch.tensor(W, device=cuda), leaf=leaf, block=256)
+    torch.cuda.synchronize()
+    leaves = -(-256 // leaf) + -(-44 // leaf)
+    assert (tq.leaf_lq.launches, tq.panel_lq.launches) == (before[0] + leaves, before[1])
+    L_plain = tq.blocked_lq_l(torch.from_numpy(W), leaf=leaf, block=256)
+    scale = np.abs(W @ W.T).max()
+    assert (L.cpu() - L_plain).abs().max().item() <= 1e-12 * np.sqrt(scale)
+
+
+@pytest.mark.parametrize("rows, cols, off", [(64, 20257, 0), (64, 20257, 192), (32, 26626, 224)],
+                         ids=["n1e4-window", "n1e4-window-last-leaf", "latent-d2048-leaf"])
+def test_leaf_lq_matches_the_plain_version_at_large_n_shapes(cuda, rows, cols, off):
+    x = torch.tensor(np.random.default_rng(cols + off).standard_normal((rows, cols)),
+                     device=cuda)
+    before = (tq.leaf_lq.launches, tq.panel_lq.launches)
+    lv, tT = tq.leaf_lq(x, off)
+    torch.cuda.synchronize()
+    assert (tq.leaf_lq.launches, tq.panel_lq.launches) == (before[0] + 1, before[1])
+    assert not tq.panel_lq_launch(rows, cols, 8, 132).registers  # the global-memory tier
+    lv_ref, tT_ref = tq.panel_lq_reference(x, off)
+    tol = 1e-12 * x.abs().max().item()
+    assert (lv - lv_ref).abs().max().item() <= tol
+    assert (tT - tT_ref).abs().max().item() <= tol
+
+
+def test_two_leaf_lq_launches_give_the_same_bits(cuda):
+    x = torch.tensor(np.random.default_rng(8).standard_normal((64, 20257)), device=cuda)
+    lv, tT = tq.leaf_lq(x, 0)
+    lv2, tT2 = tq.leaf_lq(x, 0)
+    assert torch.equal(lv, lv2) and torch.equal(tT, tT2)
+
+
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "heat_trajectories.npz"
 
 

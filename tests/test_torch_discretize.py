@@ -131,5 +131,12 @@ def test_out_of_slice_problem_options_raise():
         heat.discretize(mesh_spatial=mesh, kernel=pt.kernels.SquareExponential(),
                         stencil_size_interior=3, stencil_size_boundary=3,
                         scheme="bogus")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=3000, device="cpu").fill_distance
+
+
+def test_fill_distance_above_the_brute_force_cutover_matches_jax():
+    """3000 points: the native k-NN's nearest neighbours, as in the JAX mesh."""
+    from pnmol_tpu import mesh as jmesh
+
+    points = np.random.default_rng(3).uniform(size=(3000, 1))
+    mesh = pt.mesh.RectangularMesh(points, device="cpu")
+    assert mesh.fill_distance == jmesh.RectangularMesh(points).fill_distance

@@ -37,14 +37,16 @@ def test_no_jax_imports_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
-# the modules of the adaptive, semilinear and latent-force slice
+# the modules of the adaptive, semilinear and latent-force slice, and of the
+# large-N slice
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
-                 "models.examples", "models.mixins", "models.problems", "discretize")
+                 "models.examples", "models.mixins", "models.problems", "discretize",
+                 "native")
 
 
 def test_the_slice_modules_are_checked():
     checked = {str(p.relative_to(REPO / "pnmol_tpu_torch"))[:-3].replace("/", ".")
-               for p in _sources() if p.parent != REPO}
+               .removesuffix(".__init__") for p in _sources() if p.parent != REPO}
     assert set(SLICE_MODULES) <= checked
 
 

@@ -174,23 +174,13 @@ CONSTANT = pt.odetools.step.Constant(0.1)
     [
         (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state=True), "item 15"),
         (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state={}), "item 15"),
-        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, fused=False), "item 12"),
-        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, propagate_band="banded"),
-         "item 12"),
         (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, meascov_dt_scaled=True,
                                               steady_state=True), "item 15"),
-        (lambda: pt.latent.SemiLinearLatentForceEK1(propagate_band="banded"), "item 12"),
-        (lambda: pt.latent.LinearLatentForceEK1(steprule=pt.odetools.step.Adaptive(),
-                                                fused=False), "item 12"),
-        (lambda: pt.white.SemiLinearWhiteNoiseEK1(steprule=CONSTANT,
-                                                  propagate_band="interleaved"), "item 12"),
         (lambda: pt.white.SemiLinearWhiteNoiseEK0(steprule=CONSTANT, steady_state=True),
          "item 15"),
         (lambda: pt.latent.LinearLatentForceEK1(steprule=CONSTANT, steady_state={}), "item 15"),
-        (lambda: pt.white.check_init_size(4096), "item 12"),
     ],
-    ids=["steady", "steady-dict", "two-qr", "band", "dt-scaled", "default-adaptive", "adaptive",
-         "semilinear-ek1", "semilinear-ek0", "latent", "init-d4096"],
+    ids=["steady", "steady-dict", "dt-scaled", "semilinear-ek0", "latent"],
 )
 def test_out_of_slice_options_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
