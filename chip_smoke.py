@@ -79,7 +79,21 @@ Phases (any failure exits non-zero; nothing is swallowed):
     leaves: 4379 leaf launches, no panel launch) and ``"interleaved"``
     (4379 + 313 for the initial factor's re-triangularization), against
     the plain two-QR path (``torch.linalg.qr`` of each pre-array); init
-    seconds, steps/s, the sweeps of each path, and the peak memory.
+    seconds, steps/s, the sweeps of each path, and the peak memory;
+16. (A) MOL baseline: the phase-5 problem's ``to_ivp()`` (d = 510) through
+    ``odetools.ek1.ReferenceEK1ConstantDiffusion`` (``Stack``, 20 steps,
+    plain QRs, no kernel launch), its init seconds and steps/s, against DP5
+    on the card and phase 5's PNMOL mean; ``TaylorMode`` on the same IVP;
+17. (B) smoothing: phase 5's panel-kernel run through ``solve`` (353
+    launches), then ``solvers.smoothing.smooth_solution`` against a dense
+    RTS oracle;
+18. (C) figure 4's work-precision point at dx = 0.01: Lotka-Volterra (d =
+    202) through the latent and white semilinear EK1 (panel kernel) and the
+    MOL EK1, three step sizes, against LSODA on the dx/7 mesh: relative
+    RMSE, chi2, steps and seconds;
+19. (D) calibration: ``kernels.mle_input_scale`` on a 512-point mesh (one
+    radial-Gram launch per trial, 20) against the same grid through the
+    plain Gram, then 100 Adam steps of ``mle_input_scale_gradient``.
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -135,6 +149,13 @@ ADAPTIVE_TMAX = 0.1
 # 64-row leaves), 5 steps
 LATENT_LARGE_POINTS, LATENT_LARGE_STEPS = 2048, 2
 LARGE_N, LARGE_NU, LARGE_STEPS = 10000, 1, 5
+# the MOL baseline and the calibration: figure 4's work-precision point at
+# its finest mesh (dx = 0.01: 101 points, d = 202, the reference on the
+# dx/7 mesh) with --fast's span and steps, and figure 2's grid search on a
+# 512-point mesh
+FIG4_DX, FIG4_TMAX, FIG4_REF_SCALE = 0.01, 1.0, 7
+FIG4_DTS = np.logspace(0.0, -2.5, 3)
+MLE_POINTS, MLE_TRIALS = 512, 20
 # the source of each kernel: the leaf QR is the panel kernel on the tall
 # layout, the LQ leaf the panel kernel on a leaf of a block
 SOURCES = {"panel_lq": "panel_lq", "leaf_lq": "panel_lq", "gram_radial": "gram_radial",
@@ -732,7 +753,7 @@ def phase_full_width(pt, dev, launches, card_line):
     report_run(f"N={N_POINTS} householder kernel", hh, card_line)
     report_run(f"N={N_POINTS} plain torch.linalg.qr", plain, card_line)
     compare_runs("kernel path vs plain path", hh, plain)
-    return heat, plain
+    return heat, plain, hh
 
 
 def phase_collocation(pt, dev, launches, card_line):
@@ -1000,6 +1021,320 @@ def phase_large_n(pt, dev, launches, card_line):
           flush=True)
 
 
+def timed_sync(fn):
+    """``(result, seconds)`` by the host clock, synchronized on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def phase_mol(pt, dev, launches, card_line, pnmol):
+    """A. The MOL baseline at the bench point: ``heat.to_ivp()`` of the
+    phase-5 problem (d = 510 interior points, D = 1530 at nu = 2) through
+    ``ReferenceEK1ConstantDiffusion`` with ``Stack(use_df=False)``, 20 steps
+    of DT through ``solve`` and ``simulate_final_state``; each step is two
+    ``torch.linalg.qr`` (3060 x 1530 and 2040 x 2040), no kernel. Against
+    DP5 on the card and phase 5's PNMOL white panel-kernel mean."""
+    heat = full_width_heat(pt, dev)
+    ivp = heat.to_ivp()
+    d = ivp.y0.shape[0]
+    mol = pt.odetools.ek1.ReferenceEK1ConstantDiffusion(
+        num_derivatives=NU, steprule=pt.odetools.step.Constant(DT),
+        initialization=pt.odetools.init.Stack(use_df=False))
+    launches.reset()
+    (sol, sigma_sq), solve_s = timed_sync(lambda: mol.solve(ivp))
+    _, init_s = timed_sync(lambda: mol.initialize(ivp))
+    (final, info), final_s = timed_sync(lambda: mol.simulate_final_state(ivp))
+    f0 = ivp.f(ivp.t0, ivp.y0)
+    rows = (ivp.y0, f0, ivp.df(ivp.t0, ivp.y0) @ f0)
+    taylor, taylor_s = timed_sync(lambda: pt.odetools.init.TaylorMode.taylor_mode(
+        ivp.f, ivp.y0, ivp.t0, NU))
+    ref, dp5_s = timed_sync(lambda: pt.odetools.reference_solver.solve_ivp_dopri5(
+        ivp.f, ivp.t_span, ivp.y0, [ivp.tmax], rtol=1e-10, atol=1e-12))
+    launches.read(f"N={N_POINTS} MOL path (d={d}, D={d * (NU + 1)})", {})
+
+    steps = info["num_steps"]
+    u, u_ref, u0 = sol.mean[-1, 0], ref.y[-1], sol.mean[0, 0]
+    print(f"N={N_POINTS} MOL EK1 (Stack, plain torch.linalg.qr): init {init_s:.3f} s, "
+          f"{steps / (solve_s - init_s):.2f} steps/s over {steps} steps (solve {solve_s:.3f} s, "
+          f"simulate_final_state {final_s:.3f} s), sigma^2 {sigma_sq.item():.6e}, max|u| "
+          f"{u0.abs().max().item():.10f} -> {u.abs().max().item():.10f} [{card_line}]", flush=True)
+    dp5_err = ((u - u_ref).abs().max() / u_ref.abs().max()).item()
+    pnmol_u = pnmol["state"].y.mean[0, 1:-1]
+    pnmol_diff = ((u - pnmol_u).abs().max() / pnmol_u.abs().max()).item()
+    print(f"N={N_POINTS} MOL final mean against DP5 (rtol 1e-10, atol 1e-12, {ref.num_steps} "
+          f"attempts, {dp5_s:.3f} s): max rel {dp5_err:.3e}; against phase 5's PNMOL white "
+          f"panel-kernel interior mean: max rel {pnmol_diff:.3e}", flush=True)
+    factor = sol.cov_sqrtm[-1] * torch.sqrt(sigma_sq)
+    factor_rel = ((final.y.cov_sqrtm - factor).abs().max() / factor.abs().max()).item()
+    taylor_rel = max(((taylor[k] - row).abs().max() / row.abs().max()).item()
+                     for k, row in enumerate(rows))
+    print(f"N={N_POINTS} MOL simulate_final_state factor vs solve's x sqrt(sigma^2): rel "
+          f"{factor_rel:.3e}; TaylorMode(nu={NU}) vs y0, f(y0), df(y0) f(y0): rel "
+          f"{taylor_rel:.3e} ({taylor_s:.3f} s)", flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in (sol.mean, sol.cov_sqrtm, sigma_sq,
+                                                       final.y.mean, final.y.cov_sqrtm, u_ref)),
+          "MOL: NaN or inf")
+    check(steps == NUM_STEPS and bool(u.abs().max() < u0.abs().max()), "MOL: heat did not decay")
+    check(factor_rel <= 1e-10, "MOL: simulate_final_state's factor differs from solve's")
+    check(taylor_rel <= 1e-10, "MOL: TaylorMode differs from the Stack rows")
+
+
+def rts_oracle(solver, sol, raw=False):
+    """The dense full-covariance RTS smoother of
+    tests/test_solvers/test_smoothing.py, run in each step's preconditioned
+    coordinates (the same recursion under the similarity transform P), or
+    with ``raw`` in raw coordinates as that test runs it. At dt = 1e-3 the
+    raw scales span dt^2.5 / 2 = 1.6e-8 to dt^0.5 = 0.03, and the raw dense
+    gain solve loses digits that the comparison needs (phase B prints both).
+    Returns the smoothed ``(flat mean, covariance)`` of every state."""
+    A_pre, LQ_pre = solver.iwp.preconditioned_discretize
+    Q_pre = LQ_pre @ LQ_pre.T
+    dts = torch.diff(sol.t)
+    flat = sol.mean.transpose(1, 2).reshape(sol.mean.shape[0], -1)  # point-major
+    m_next, C_next = flat[-1], sol.cov_sqrtm[-1] @ sol.cov_sqrtm[-1].T
+    out = [(m_next, C_next)]
+    for k in range(len(dts) - 1, -1, -1):
+        p, p_inv = solver.iwp.nordsieck_preconditioner_1d_raw(dts[k])
+        P, P_inv = p.repeat(sol.mean.shape[2]), p_inv.repeat(sol.mean.shape[2])
+        if raw:
+            P, P_inv = torch.ones_like(P), torch.ones_like(P_inv)
+            A_pre, LQ_pre = solver.iwp.non_preconditioned_discretize(dts[k].item())
+            Q_pre = LQ_pre @ LQ_pre.T
+        m_k = P_inv * flat[k]
+        C_k = P_inv[:, None] * (sol.cov_sqrtm[k] @ sol.cov_sqrtm[k].T) * P_inv[None, :]
+        m_n, C_n = P_inv * m_next, P_inv[:, None] * C_next * P_inv[None, :]
+        mp = A_pre @ m_k
+        Pp = A_pre @ C_k @ A_pre.T + Q_pre
+        gain = torch.linalg.solve(Pp.T, (C_k @ A_pre.T).T).T
+        m_s = m_k + gain @ (m_n - mp)
+        C_s = C_k + gain @ (C_n - Pp) @ gain.T
+        m_next, C_next = P * m_s, P[:, None] * C_s * P[None, :]
+        out.append((m_next, C_next))
+    return out[::-1]
+
+
+def phase_smoothing(pt, dev, launches, card_line):
+    """B. RTS smoothing at N = 512: phase 5's configuration (white, panel
+    kernel, 20 steps, D = 1536) through ``solve``, all 21 states kept, then
+    ``smooth_solution`` (plain QRs and Cholesky solves), against the dense
+    oracle in f64 on the card."""
+    heat = full_width_heat(pt, dev)
+    solver = heat_solver(pt, "householder", steprule=pt.odetools.step.Constant(DT))
+    launches.reset()
+    sol, solve_s = timed_sync(lambda: solver.solve(heat))
+    smoothed, smooth_s = timed_sync(lambda: pt.solvers.smoothing.smooth_solution(solver, sol))
+    launches.read(f"N={N_POINTS} smoothing path (the solve's panel launches)",
+                  {"panel_lq": EXPECTED_LAUNCHES})
+    oracle, oracle_s = timed_sync(lambda: rts_oracle(solver, sol))
+
+    def distance(oracle):
+        """The largest distance of the smoother's means and covariances from
+        the oracle's, each relative to the state's largest entry."""
+        mean_rel = gram_rel = 0.0
+        for k, (m_o, C_o) in enumerate(oracle):
+            m = smoothed.mean[k].T.reshape(-1)
+            G = smoothed.cov_sqrtm[k] @ smoothed.cov_sqrtm[k].T
+            mean_rel = max(mean_rel, ((m - m_o).abs().max() / m_o.abs().max()).item())
+            gram_rel = max(gram_rel, ((G - C_o).abs().max() / C_o.abs().max()).item())
+        return mean_rel, gram_rel
+
+    mean_rel, gram_rel = distance(oracle)
+    raw_mean_rel, raw_gram_rel = distance(rts_oracle(solver, sol, raw=True))
+    var_f = torch.einsum("tij,tij->ti", sol.cov_sqrtm, sol.cov_sqrtm)
+    var_s = torch.einsum("tij,tij->ti", smoothed.cov_sqrtm, smoothed.cov_sqrtm)
+    excess = (var_s - var_f).max().item()
+    print(f"N={N_POINTS} RTS smoother over {sol.t.shape[0]} states (D={sol.cov_sqrtm.shape[1]}): "
+          f"{smooth_s:.3f} s (the solve {solve_s:.3f} s, the dense oracle {oracle_s:.3f} s); "
+          f"against the dense oracle, of each state's largest entry: mean {mean_rel:.3e}, "
+          f"covariance {gram_rel:.3e} (the raw-coordinate oracle: {raw_mean_rel:.3e} and "
+          f"{raw_gram_rel:.3e}); smoothed minus filtered variance at most {excess:.3e} "
+          f"[{card_line}]", flush=True)
+    check(bool(torch.isfinite(smoothed.mean).all() and torch.isfinite(smoothed.cov_sqrtm).all()),
+          "smoothing: NaN or inf")
+    check(mean_rel <= 1e-7 and gram_rel <= 1e-6, "smoothing: the dense oracle disagrees")
+    check(excess <= 1e-10, "smoothing: a smoothed variance exceeds the filtered one")
+    check(torch.equal(smoothed.mean[-1], sol.mean[-1])
+          and torch.equal(smoothed.cov_sqrtm[-1], sol.cov_sqrtm[-1]),
+          "smoothing: the last state changed")
+
+
+# figure 4's statistics (experiments/common.py, which imports JAX)
+def chi2_statistic(error_abs, cov):
+    """Calibration statistic e^T C^{-1} e / n (SPD solve via Cholesky)."""
+    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    chol = torch.linalg.cholesky(cov + 1e-12 * eye)
+    white = torch.cholesky_solve(error_abs[:, None], chol)[:, 0]
+    return error_abs @ white / error_abs.shape[0]
+
+
+def rmse(error_abs, reference):
+    """RMSE relative to the reference."""
+    err = error_abs / torch.abs(reference)
+    return torch.linalg.norm(err) / err.numel() ** 0.5
+
+
+def top_left(cov):
+    """The first species' block of a two-species covariance."""
+    half = cov.shape[0] // 2
+    return cov[:half, :half]
+
+
+def phase_figure4(pt, dev, launches, card_line):
+    """C. Figure 4's work-precision point at its finest mesh
+    (experiments/figure4.py with --fast's span and steps): Lotka-Volterra at
+    dx = 0.01 (d = 202; stencils 3 and 4), prior duplicate(Matern52 +
+    WhiteNoise, 2), nu = 2, dt in logspace(0, -2.5, 3); SemiLinearLatentForceEK1
+    and SemiLinearWhiteNoiseEK1 through "householder", and the MOL EK1 with
+    Stack(use_df=False) on ``pde.to_ivp()``, against LSODA on the dx/7 mesh."""
+    def make_lv(dx, **kwargs):
+        return pt.examples.lotka_volterra_1d_discretized(t0=0.0, tmax=FIG4_TMAX, dx=dx,
+                                                         device=dev, **kwargs)
+
+    pde = make_lv(FIG4_DX, stencil_size_interior=3, stencil_size_boundary=4)
+    ivp = pde.to_ivp()
+    d = pde.L.shape[0]
+    m = d + pde.B.shape[0]
+    ref_ivp = make_lv(FIG4_DX / FIG4_REF_SCALE).to_ivp()
+    ref, ref_s = timed_sync(lambda: pt.odetools.reference_solver.solve_ivp_stiff(
+        ref_ivp.f, ref_ivp.t_span, ref_ivp.y0, t_eval=[FIG4_TMAX], rtol=1e-10, atol=1e-10,
+        jac=ref_ivp.df))
+    u_ref = ref.y[-1][: ref_ivp.y0.shape[0] // 2][FIG4_REF_SCALE - 1::FIG4_REF_SCALE]
+    print(f"figure 4 dx={FIG4_DX}: d={d}, MOL d={ivp.y0.shape[0]}, LSODA reference on "
+          f"{ref_ivp.y0.shape[0]} unknowns in {ref_s:.3f} s ({ref.num_steps} f evaluations), "
+          f"{u_ref.shape[0]} prey points", flush=True)
+    check(u_ref.shape[0] == d // 2 - 2 and bool(torch.isfinite(u_ref).all()),
+          "figure 4: reference shape or NaN")
+
+    prior = pt.duplicate(pt.kernels.Matern52() + pt.kernels.WhiteNoise(), 2)
+
+    def latent(dt):
+        solver = pt.latent.SemiLinearLatentForceEK1(
+            num_derivatives=NU, steprule=pt.odetools.step.Constant(dt), spatial_kernel=prior,
+            factorization="householder")
+        final, info = solver.simulate_final_state(pde)
+        u = final.y.mean[0, : d][: d // 2][1:-1]
+        cov = final.y.cov_sqrtm @ final.y.cov_sqrtm.T
+        return u, top_left(solver.E0 @ top_left(cov) @ solver.E0.T)[1:-1, 1:-1], info
+
+    def white(dt):
+        solver = pt.white.SemiLinearWhiteNoiseEK1(
+            num_derivatives=NU, steprule=pt.odetools.step.Constant(dt), spatial_kernel=prior,
+            factorization="householder")
+        final, info = solver.simulate_final_state(pde)
+        cov = final.y.cov_sqrtm @ final.y.cov_sqrtm.T
+        return (final.y.mean[0, : d // 2][1:-1],
+                top_left(solver.E0 @ cov @ solver.E0.T)[1:-1, 1:-1], info)
+
+    def mol(dt):
+        solver = pt.odetools.ek1.ReferenceEK1ConstantDiffusion(
+            num_derivatives=NU, steprule=pt.odetools.step.Constant(dt),
+            initialization=pt.odetools.init.Stack(use_df=False))
+        final, info = solver.simulate_final_state(ivp)
+        cov = final.y.cov_sqrtm @ final.y.cov_sqrtm.T
+        E0 = solver.iwp.projection_matrix(0)
+        return final.y.mean[0, : ivp.y0.shape[0] // 2], top_left(E0 @ cov @ E0.T), info
+
+    def panels(rows):
+        return -(-rows // 128)
+
+    # panel launches of one simulate_final_state: init LQ and per-step LQ
+    # rows, latent m + 4d and m + 6d, white m + 2d and m + 3d (MOL none)
+    methods = {"pnmol_latent": (latent, panels(m + 4 * d), panels(m + 6 * d)),
+               "pnmol_white": (white, panels(m + 2 * d), panels(m + 3 * d)),
+               "mol": (mol, 0, 0)}
+    rmses = {name: [] for name in methods}
+    for dt in FIG4_DTS.tolist():
+        steps = len(pt.pdefilter.constant_step_schedule(0.0, FIG4_TMAX, dt)[1])
+        for name, (run, init_panels, step_panels) in methods.items():
+            launches.reset()
+            (u, u_cov, info), seconds = timed_sync(lambda: run(dt))
+            launches.read(f"figure 4 {name} dt={dt:.5f}",
+                          {"panel_lq": init_panels + steps * step_panels})
+            err = torch.abs(u - u_ref)
+            r, chi2 = rmse(err, u_ref).item(), chi2_statistic(err, u_cov).item()
+            rmses[name].append(r)
+            print(f"figure 4 dx={FIG4_DX} dt={dt:.5f} {name}: rmse {r:.6e}, chi2 {chi2:.6e}, "
+                  f"{info['num_steps']} steps, {seconds:.3f} s [{card_line}]", flush=True)
+            check(info["num_steps"] == steps and np.isfinite(r) and np.isfinite(chi2) and chi2 > 0,
+                  f"figure 4 {name} dt={dt}: steps, NaN or chi2 <= 0")
+    for name, values in rmses.items():
+        check(values[-1] < values[0], f"figure 4 {name}: the finest dt is not more accurate")
+
+
+def phase_mle(pt, tgram, dev, launches, card_line):
+    """D. Input-scale calibration: figure 2's target sin(x . x) on a 512-point
+    mesh of [0, 1], 20 trials in logspace(-3, 3): ``mle_input_scale`` on CUDA
+    tensors (each 512 x 512 Gram through the Gram kernel), then again through
+    the plain Gram on purpose; then 100 Adam steps of the gradient MLE (a
+    tensor scale: the plain Gram, which autograd follows)."""
+    SE = pt.kernels.SquareExponential
+
+    class PlainSE(SE):
+        def __call__(self, X, Y):
+            return tgram.gram_radial_reference(X, Y.T, self.input_scale, self.output_scale,
+                                               phi_name=self._PHI_NAME)
+
+    X = torch.linspace(0.0, 1.0, MLE_POINTS, dtype=torch.float64, device=dev)[:, None]
+    y = torch.sin((X**2).sum(dim=1))
+    trials = torch.logspace(-3, 3, MLE_TRIALS, dtype=torch.float64)
+
+    def grid(kernel_type):
+        return pt.kernels.mle_input_scale(mesh_points=X, data=y, kernel_type=kernel_type,
+                                          input_scale_trials=trials)
+
+    launches.reset()
+    best, kernel_s = timed_sync(lambda: grid(SE))
+    launches.read(f"N={MLE_POINTS} mle_input_scale grid", {"gram_radial": MLE_TRIALS})
+    launches.reset()
+    best_plain, plain_s = timed_sync(lambda: grid(PlainSE))
+    launches.read(f"N={MLE_POINTS} mle_input_scale grid, plain Gram", {})
+
+    def values(kernel_type):
+        return np.array([pt.kernels.input_scale_to_log_likelihood(
+            s, X, y, kernel_type).item() for s in trials.tolist()])
+
+    v_kernel, v_plain = values(SE), values(PlainSE)  # comparison launches: not counted
+    masked_kernel, masked_plain = np.isnan(v_kernel), np.isnan(v_plain)
+    print(f"N={MLE_POINTS} input-scale MLE: chosen {float(best):.6g} (Gram kernel, {kernel_s:.3f} s)"
+          f", {float(best_plain):.6g} (plain Gram, {plain_s:.3f} s); masked trials "
+          f"{np.nonzero(masked_kernel)[0].tolist()} and {np.nonzero(masked_plain)[0].tolist()} "
+          f"of {MLE_TRIALS} (indices into logspace(-3, 3)) [{card_line}]", flush=True)
+    for i in np.nonzero(masked_kernel != masked_plain)[0]:
+        for label, kernel_type in (("kernel", SE), ("plain", PlainSE)):
+            chol, info = torch.linalg.cholesky_ex(kernel_type(input_scale=trials[i].item())(X, X.T))
+            # a failed factorization's leading info - 1 pivots are valid
+            valid = int(info) - 1 if int(info) > 0 else MLE_POINTS
+            smallest = torch.diagonal(chol)[:valid].abs().min().item() if valid else float("nan")
+            print(f"  trial {trials[i].item():.6g} masked on one route only: {label} Gram "
+                  f"info {int(info)}, smallest pivot {smallest:.3e}", flush=True)
+    both = ~masked_kernel & ~masked_plain
+    conds = np.array([torch.linalg.cond(PlainSE(input_scale=s)(X, X.T)).item()
+                      for s in trials.tolist()])
+    rel = np.abs(v_kernel - v_plain) / np.abs(v_plain)
+    tame = both & (conds < 1e12)
+    for i in np.nonzero(both & ~tame)[0]:
+        print(f"  trial {trials[i].item():.6g}: Gram condition {conds[i]:.3e}, log likelihoods "
+              f"{v_kernel[i]:.10g} (kernel) and {v_plain[i]:.10g} (plain), rel {rel[i]:.3e}",
+              flush=True)
+    worst = rel[tame].max() if tame.any() else 0.0
+    print(f"N={MLE_POINTS} log likelihoods finite on both routes: {int(both.sum())}, of which "
+          f"{int(tame.sum())} with Gram condition below 1e12 agree to {worst:.3e} rel", flush=True)
+    check(float(best) == float(best_plain), "MLE: the routes choose different scales")
+    if (masked_kernel == masked_plain).all():
+        check(worst <= 1e-8, "MLE: the routes' log likelihoods disagree")
+
+    launches.reset()
+    scale, grad_s = timed_sync(lambda: pt.kernels.mle_input_scale_gradient(
+        mesh_points=X, data=y, kernel_type=SE, initial_scale=float(best)))
+    launches.read(f"N={MLE_POINTS} mle_input_scale_gradient", {})
+    print(f"N={MLE_POINTS} gradient MLE (100 Adam steps from {float(best):.6g}): scale "
+          f"{scale:.10g} in {grad_s:.3f} s [{card_line}]", flush=True)
+    check(np.isfinite(scale) and scale > 0, "gradient MLE: not finite")
+
+
 def phase_build(cuda_build):
     """One nvcc per source, all started together."""
     def timed(name):
@@ -1016,6 +1351,7 @@ def phase_build(cuda_build):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     card_line = card()
@@ -1044,7 +1380,7 @@ def main():
                  "the panel kernel")
     phase_golden(pt, dev, launches, white, "white", tq.make_householder_factorization(),
                  {"leaf_qr": 5}, "the R-form hook (leaf kernel)")
-    heat, plain = phase_full_width(pt, dev, launches, card_line)
+    heat, plain, pnmol = phase_full_width(pt, dev, launches, card_line)
     phase_collocation(pt, dev, launches, card_line)
     phase_r_form(pt, tq, launches, heat, plain, card_line)
     phase_golden(pt, dev, launches, latent, "latent", "householder", {"panel_lq": 6},
@@ -1058,7 +1394,12 @@ def main():
     phase_latent_r_form(pt, tq, launches, heat, latent_plain, card_line)
     phase_latent_large(pt, dev, launches, card_line)
     phase_large_n(pt, dev, launches, card_line)
+    phase_mol(pt, dev, launches, card_line, pnmol)
+    phase_smoothing(pt, dev, launches, card_line)
+    phase_figure4(pt, dev, launches, card_line)
+    phase_mle(pt, tgram, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     records = []
     for name, replaces, measured in (

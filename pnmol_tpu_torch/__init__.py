@@ -37,6 +37,20 @@ of 32 or 64 rows (``ops.qr_householder.leaf_lq``). The N = 1e4 point of
         steprule=pt.odetools.step.Constant(1e-3), num_derivatives=1,
         factorization="householder", fused=False, propagate_band="banded")
 
+The method-of-lines baseline of the paper's comparisons converts a
+discretized problem to an ODE (``pde.to_ivp()``) and solves it with the
+classical EK1 ODE filter ``odetools.ek1.ReferenceEK1ConstantDiffusion``
+(initialized by ``odetools.init.TaylorMode``, ``Stack`` or ``RungeKutta``),
+against the DP5 and LSODA references of ``odetools.reference_solver``;
+``solvers.smoothing.smooth_solution`` smooths a PDE filter's trajectory,
+and ``kernels.mle_input_scale`` calibrates a kernel's input scale::
+
+    ivp = heat.to_ivp()
+    mol = pt.odetools.ek1.ReferenceEK1ConstantDiffusion(
+        num_derivatives=2, steprule=pt.odetools.step.Constant(1e-3),
+        initialization=pt.odetools.init.Stack(use_df=False))
+    sol, sigma_sq = mol.solve(ivp)
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """
@@ -47,7 +61,7 @@ from pnmol_tpu_torch import models as pde  # alias, as in pnmol_tpu
 from pnmol_tpu_torch import interop, odetools
 from pnmol_tpu_torch.kernels import duplicate
 from pnmol_tpu_torch.models import examples
-from pnmol_tpu_torch.solvers import latent, pdefilter, white
+from pnmol_tpu_torch.solvers import latent, pdefilter, smoothing, white
 from pnmol_tpu_torch.solvers.latent import (
     LinearLatentForceEK1,
     SemiLinearLatentForceEK0,
@@ -80,5 +94,6 @@ __all__ = [
     "ops",
     "pde",
     "pdefilter",
+    "smoothing",
     "white",
 ]

@@ -8,6 +8,7 @@ distinct neighbour-offset patterns are solved (O(1) on a uniform grid).
 One-sided two-point stencils give the 1-D Neumann boundary operator.
 Global collocation gives a dense ``L`` and a dense Cholesky ``E_sqrtm`` from
 three N x N Grams, of which the kernel's own reaches the CUDA Gram kernel.
+:func:`dx_adapted_input_scale` ties the kernel's input scale to the mesh.
 """
 
 from functools import partial
@@ -208,3 +209,11 @@ def collocation_global(diffop, mesh_spatial, kernel=None, nugget_gram_matrix=0.0
         E = 0.5 * (E + E.T)
     E = E + nugget_cholesky_E * eye
     return D, torch.linalg.cholesky(E)
+
+
+def dx_adapted_input_scale(mesh_spatial, target=1.0):
+    """Input scale that keeps the stencil systems well conditioned at any dx:
+    the conditioning of a kernel-FD stencil Gram grows like ``(input_scale *
+    dx)^{-2(s-1)}``, so ``input_scale = target / fill_distance`` holds the
+    product at O(1) on every mesh."""
+    return float(target) / mesh_spatial.fill_distance

@@ -1,8 +1,9 @@
 """Build the port's objects from NumPy arrays.
 
-Hands a problem, a white- or latent-solver cache or a filter state that another
-implementation (for example the JAX package, converted with ``np.asarray``)
-produced to the port, so that both run from the same numbers. Takes NumPy
+Hands a problem, a white- or latent-solver cache, or a PDE- or ODE-filter
+state that another implementation (for example the JAX package, converted
+with ``np.asarray``) produced to the port, so that both run from the same
+numbers. Takes NumPy
 arrays only; everything lands as float64 on ``device``.
 """
 
@@ -11,6 +12,7 @@ import torch
 
 from pnmol_tpu_torch import config, mesh
 from pnmol_tpu_torch.models import problems
+from pnmol_tpu_torch.odetools import ek1
 from pnmol_tpu_torch.ops import rv
 from pnmol_tpu_torch.solvers import latent, pdefilter, white
 
@@ -73,6 +75,19 @@ def filter_state(*, t, mean, cov_sqrtm, device):
     (n, d) and covariance factor (D, D)."""
     mean = _tensor(mean, device)
     return pdefilter.PDEFilterState(
+        t=float(t),
+        y=rv.MultivariateNormal(mean=mean, cov_sqrtm=_tensor(cov_sqrtm, device)),
+        error_estimate=None,
+        reference_state=None,
+        diffusion_squared_local=mean.new_zeros(()),
+    )
+
+
+def ode_filter_state(*, t, mean, cov_sqrtm, device):
+    """A :class:`pnmol_tpu_torch.odetools.ek1.ODEFilterState` with mean (n, d)
+    and covariance factor (D, D)."""
+    mean = _tensor(mean, device)
+    return ek1.ODEFilterState(
         t=float(t),
         y=rv.MultivariateNormal(mean=mean, cov_sqrtm=_tensor(cov_sqrtm, device)),
         error_estimate=None,

@@ -5,11 +5,15 @@ scalar pair -> scalar; equal-shape ``(N, d)`` inputs -> diagonal ``(N,)``;
 ``(N, d) x (d, K)`` -> full Gram ``(N, K)`` (callers pass ``k(X, Y.T)``).
 Pairwise functions are batched with ``torch.func.vmap``, so they must stay
 vmap-safe: no Python branching on tensor values. ``duplicate`` stacks one
-kernel into the block-diagonal prior of a PDE system.
+kernel into the block-diagonal prior of a PDE system, and the input scale
+is calibrated by maximum likelihood, on a grid of trials
+(:func:`mle_input_scale`) or by gradient steps
+(:func:`mle_input_scale_gradient`).
 """
 
 import abc
 import dataclasses
+import math
 
 import torch
 from torch.func import vmap
@@ -147,6 +151,17 @@ class Matern52(RadialKernel):
 
 
 @dataclasses.dataclass(frozen=True)
+class Polynomial(PairwiseKernel):
+    """k(x, y) = (x . y + const)^order."""
+
+    order: int = 2
+    const: float = 1.0
+
+    def pairwise(self, x, y):
+        return (torch.dot(x, y) + self.const) ** self.order
+
+
+@dataclasses.dataclass(frozen=True)
 class WhiteNoise(PairwiseKernel):
     """k(x, y) = output_scale^2 * 1[x == y]."""
 
@@ -176,3 +191,65 @@ class StackedKernel(Kernel):
 def duplicate(kernel, num):
     """``num`` copies of ``kernel`` stacked into a block-diagonal Gram."""
     return StackedKernel(kernel_list=[kernel] * num)
+
+
+# ---------------------------------------------------------------------------
+# Hyperparameter calibration
+# ---------------------------------------------------------------------------
+
+
+def log_likelihood(gram_matrix, y, n):
+    """GP log marginal likelihood through one Cholesky factorization; NaN
+    where the Gram is not numerically positive definite, as
+    ``jnp.linalg.cholesky`` gives there (``torch.linalg.cholesky`` raises,
+    so this takes ``cholesky_ex`` and its ``info``)."""
+    chol, info = torch.linalg.cholesky_ex(gram_matrix)
+    white = torch.linalg.solve_triangular(chol, y[:, None], upper=False)[:, 0]
+    maha = white @ white
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+    value = -0.5 * (maha + logdet + n * math.log(2.0 * math.pi))
+    return torch.where(info == 0, value, torch.full_like(value, float("nan")))
+
+
+def input_scale_to_log_likelihood(input_scale, mesh_points, data, kernel_type):
+    """Log likelihood of ``data`` under ``kernel_type(input_scale=...)``; a
+    Python-float scale takes the kernel's Gram dispatch (the CUDA kernel for
+    large CUDA Grams), a tensor scale the plain Gram, which autograd follows."""
+    kernel = kernel_type(input_scale=input_scale)
+    K = kernel(mesh_points, mesh_points.T)
+    return log_likelihood(gram_matrix=K, y=data, n=data.shape[0])
+
+
+def mle_input_scale_gradient(
+    *, mesh_points, data, kernel_type, initial_scale=1.0, num_steps=100,
+    learning_rate=0.1
+):
+    """Gradient-based MLE of the input scale: Adam on the log-scale, with
+    optax's defaults (betas 0.9/0.999, eps 1e-8). Returns the scale as a
+    float."""
+    n = data.shape[0]
+    eye = torch.eye(n, dtype=data.dtype, device=data.device)
+    log_scale = torch.log(
+        torch.tensor(float(initial_scale), dtype=data.dtype, device=data.device)
+    ).requires_grad_()
+    optimizer = torch.optim.Adam([log_scale], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    for _ in range(num_steps):
+        optimizer.zero_grad()
+        kernel = kernel_type(input_scale=torch.exp(log_scale))
+        gram = kernel(mesh_points, mesh_points.T) + 1e-10 * eye
+        (-log_likelihood(gram_matrix=gram, y=data, n=n)).backward()
+        optimizer.step()
+    return float(torch.exp(log_scale.detach()))
+
+
+def mle_input_scale(*, mesh_points, data, kernel_type, input_scale_trials):
+    """Grid-search MLE of the input scale: trial by trial with Python-float
+    scales; NaN likelihoods (singular Grams at tiny scales) are masked to
+    -inf so the argmax picks the best valid trial. Returns the chosen entry
+    of ``input_scale_trials``."""
+    values = torch.stack([
+        input_scale_to_log_likelihood(float(scale), mesh_points, data, kernel_type)
+        for scale in torch.as_tensor(input_scale_trials).tolist()
+    ])
+    values = torch.where(torch.isnan(values), torch.full_like(values, -math.inf), values)
+    return input_scale_trials[int(torch.argmax(values))]

@@ -1,14 +1,11 @@
 """Composable PDE-problem capabilities: discretization, IVP structure,
-boundary conditions, nonlinearities (counterpart of
-:mod:`pnmol_tpu.models.mixins`).
-
-The method-of-lines conversion (``to_ivp``) is not ported yet (ROADMAP
-queue 1, item 13).
-"""
+the method-of-lines conversion, boundary conditions, nonlinearities
+(counterpart of :mod:`pnmol_tpu.models.mixins`)."""
 
 import functools
 
 import torch
+from torch.func import jacfwd
 
 from pnmol_tpu_torch import discretize
 
@@ -123,11 +120,69 @@ class IVPMixIn:
     def t_span(self):
         return self.t0, self.tmax
 
+
+class _IVPConversionMixInInterface:
+    """Interface for method-of-lines conversion mixins."""
+
     def to_ivp(self):
-        raise NotImplementedError(
-            "the method-of-lines conversion (to_ivp) is not ported yet "
-            "(ROADMAP queue 1, item 13)"
+        raise NotImplementedError
+
+    # Drop-in name compatibility with the reference API.
+    def to_tornadox_ivp(self):
+        return self.to_ivp()
+
+    def _check_ivp_conversion_conditions(self):
+        if not isinstance(self, _BoundaryConditionMixInInterface):
+            raise Exception(
+                "Conversion to an IVP requires boundary condition functionality."
+            )
+        if not isinstance(self, IVPMixIn):
+            raise Exception("Conversion to an IVP requires IVP functionality.")
+        if self.L is None:
+            raise AttributeError("Conversion to an IVP requires prior discretization.")
+        if self.dimension > 1:
+            raise NotImplementedError(
+                "IVP conversion beyond one spatial dimension is not supported."
+            )
+
+    def _ivp(self, f_new):
+        """The IVP of the interior points: ``df`` is ``jacfwd`` of ``f_new``."""
+        from pnmol_tpu_torch.odetools import ivp as ivp_module
+
+        return ivp_module.InitialValueProblem(
+            f=f_new,
+            df=jacfwd(f_new, argnums=1),
+            df_diagonal=None,
+            y0=self.bc_remove_pad(self.y0),
+            t0=self.t0,
+            tmax=self.tmax,
         )
+
+
+class IVPConversionLinearMixIn(_IVPConversionMixInInterface):
+    """Method-of-lines conversion for linear PDEs: the boundary rows are
+    eliminated through the boundary condition's padding."""
+
+    def to_ivp(self):
+        self._check_ivp_conversion_conditions()
+
+        def f_new(_, x):
+            return self.bc_remove_pad(self.L @ self.bc_pad(x))
+
+        return self._ivp(f_new)
+
+
+class IVPConversionSemiLinearMixIn(_IVPConversionMixInInterface):
+    """Method-of-lines conversion for semilinear PDEs."""
+
+    def to_ivp(self):
+        self._check_ivp_conversion_conditions()
+
+        def f_new(t, x):
+            x_padded = self.bc_pad(x)
+            return self.bc_remove_pad(self.L @ x_padded + self.f(t, x_padded))
+
+        return self._ivp(f_new)
 
 
 class _BoundaryConditionMixInInterface:

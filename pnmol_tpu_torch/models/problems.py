@@ -1,6 +1,5 @@
 """PDE base class and the mixin-composed problem classes (counterpart of
-:mod:`pnmol_tpu.models.problems`, without the method-of-lines conversion
-mixins, ROADMAP queue 1, item 13)."""
+:mod:`pnmol_tpu.models.problems`, with the same compositions)."""
 
 import numpy as np
 
@@ -32,6 +31,7 @@ class PDE:
 
 class LinearEvolutionDirichlet(
     mixins.IVPMixIn,
+    mixins.IVPConversionLinearMixIn,
     mixins.DiscretizationMixIn,
     mixins.DirichletMixIn,
     PDE,
@@ -41,6 +41,7 @@ class LinearEvolutionDirichlet(
 
 class LinearEvolutionNeumann(
     mixins.IVPMixIn,
+    mixins.IVPConversionLinearMixIn,
     mixins.DiscretizationMixIn,
     mixins.NeumannMixIn,
     PDE,
@@ -55,6 +56,7 @@ class SystemLinearPDENeumann(mixins.SystemDiscretizationMixIn, mixins.NeumannMix
 class SystemSemiLinearEvolutionNeumann(
     mixins.IVPMixIn,
     mixins.NonLinearMixIn,
+    mixins.IVPConversionSemiLinearMixIn,
     mixins.SystemDiscretizationMixIn,
     mixins.SystemNeumannMixIn,
     PDE,
@@ -65,6 +67,7 @@ class SystemSemiLinearEvolutionNeumann(
 class SemiLinearEvolutionNeumann(
     mixins.IVPMixIn,
     mixins.NonLinearMixIn,
+    mixins.IVPConversionSemiLinearMixIn,
     mixins.DiscretizationMixIn,
     mixins.NeumannMixIn,
     PDE,
@@ -75,6 +78,7 @@ class SemiLinearEvolutionNeumann(
 class SemiLinearEvolutionDirichlet(
     mixins.IVPMixIn,
     mixins.NonLinearMixIn,
+    mixins.IVPConversionSemiLinearMixIn,
     mixins.DiscretizationMixIn,
     mixins.DirichletMixIn,
     PDE,

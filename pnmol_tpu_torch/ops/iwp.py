@@ -152,12 +152,21 @@ class IntegratedWienerTransition:
         A = kron_point_major(self._eye(self.wiener_process_dimension), A_1d)
         return A, kron_point_major(self.wp_diffusion_sqrtm, L_Q1d)
 
-    def nordsieck_preconditioner(self, dt):
-        """Dense ``(kron(I_d, diag(p)), kron(I_d, diag(1/p)))``."""
-        p, p_inv = nordsieck_scales_1d(
+    def nordsieck_preconditioner_1d_raw(self, dt):
+        """The scales ``(p, 1/p)`` of one dimension, shape (n,)."""
+        return nordsieck_scales_1d(
             self.num_derivatives, dt, dtype=self.wp_diffusion_sqrtm.dtype,
             device=self.wp_diffusion_sqrtm.device,
         )
+
+    def nordsieck_preconditioner_1d(self, dt):
+        """Dense ``(diag(p), diag(1/p))`` of one dimension."""
+        p, p_inv = self.nordsieck_preconditioner_1d_raw(dt)
+        return torch.diag(p), torch.diag(p_inv)
+
+    def nordsieck_preconditioner(self, dt):
+        """Dense ``(kron(I_d, diag(p)), kron(I_d, diag(1/p)))``."""
+        p, p_inv = self.nordsieck_preconditioner_1d_raw(dt)
         eye = self._eye(self.wiener_process_dimension)
         return torch.kron(eye, torch.diag(p)), torch.kron(eye, torch.diag(p_inv))
 

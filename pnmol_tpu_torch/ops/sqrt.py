@@ -1,12 +1,14 @@
 """Square-root Kalman factors through ``torch.linalg.qr``.
 
-Counterpart of the propagate and the block-returning functions of
-:mod:`pnmol_tpu.ops.sqrt`: the plain pipeline that the Householder-LQ kernel
-path (:mod:`pnmol_tpu_torch.ops.qr_householder`) is held against. One QR of
-the stacked pre-array gives an upper factor whose blocks are the innovation
-factor, the cross factor and the posterior factor; the update functions
-return them transposed to lower form, ``(posterior (D, D), L21 (D, m), L1
-(m, m))`` with ``S_xz = L21 L1^T``.
+Counterpart of :mod:`pnmol_tpu.ops.sqrt`: the plain pipeline that the
+Householder-LQ kernel path (:mod:`pnmol_tpu_torch.ops.qr_householder`) is
+held against, and the dense updates of the ODE filter and the Kalman steps.
+One QR of the stacked pre-array gives an upper factor whose blocks are the
+innovation factor, the cross factor and the posterior factor. The
+``*_blocks`` functions return them transposed to lower form, ``(posterior
+(D, D), L21 (D, m), L1 (m, m))`` with ``S_xz = L21 L1^T``; the gain
+functions return ``(posterior (D, D), gain (D, m), innovation factor (m,
+m))``, the gain from one triangular solve.
 """
 
 import torch
@@ -17,10 +19,45 @@ def triu_qr(mat):
     return torch.linalg.qr(mat, mode="r")[1]
 
 
+def sqrtm_to_cholesky(St):
+    """Lower factor L with ``L L^T = St^T St``, from a 'right' square root."""
+    return triu_qr(St).T
+
+
 def propagate_cholesky_factor(S1, S2):
     """Lower factor of ``S1 S1^T + S2 S2^T`` from one QR of the stacked
     roots ``[S1^T; S2^T]`` (the two-QR pipeline's plain propagate)."""
     return triu_qr(torch.cat((S1.T, S2.T), dim=0)).T
+
+
+def update_sqrt_from_products(HC, C, meascov_sqrtm):
+    """Sqrt update from ``HC = H @ C`` (m, D), the factor ``C`` (D, D) and
+    the measurement-noise factor ``R`` (m, m): the blocks of
+    :func:`update_sqrt_from_products_blocks` with the gain ``(R1^{-1}
+    R2)^T`` from one triangular solve (``R1 = L1^T``, ``R2 = L21^T``)."""
+    posterior, L21, L1 = update_sqrt_from_products_blocks(HC, C, meascov_sqrtm)
+    gain = torch.linalg.solve_triangular(L1.T, L21.T, upper=True).T
+    return posterior, gain, L1
+
+
+def update_sqrt(transition_matrix, cov_cholesky, meascov_sqrtm):
+    """:func:`update_sqrt_from_products` with an explicit measurement matrix."""
+    return update_sqrt_from_products(
+        transition_matrix @ cov_cholesky, cov_cholesky, meascov_sqrtm
+    )
+
+
+def update_sqrt_no_meascov_from_products(HC, C):
+    """Noise-free :func:`update_sqrt_from_products`."""
+    m = HC.shape[0]
+    return update_sqrt_from_products(HC, C, HC.new_zeros((m, m)))
+
+
+def update_sqrt_no_meascov(transition_matrix, cov_cholesky):
+    """Noise-free :func:`update_sqrt` with an explicit measurement matrix."""
+    return update_sqrt_no_meascov_from_products(
+        transition_matrix @ cov_cholesky, cov_cholesky
+    )
 
 
 def update_sqrt_from_products_blocks(HC, C, meascov_sqrtm):

@@ -332,3 +332,58 @@ def test_leaf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tq.leaf_qr(torch.zeros((200, 129), dtype=torch.float64, device=cuda))  # > 128 columns
     with pytest.raises(ValueError):
         tq.leaf_qr(torch.zeros((4, 8), dtype=torch.float64, device=cuda))  # rows < cols
+
+
+# --- the MOL baseline, the smoother and the calibration ---------------------
+
+
+def test_mol_ek1_and_smoother_keep_their_outputs_on_the_card(cuda):
+    """The MOL EK1 (both entry points) on heat.to_ivp() and the RTS smoother of a
+    white solve: every output is a CUDA tensor, and none is NaN."""
+    heat = pt.examples.heat_1d_discretized(dx=0.1, tmax=0.5, device=cuda)
+    ivp = heat.to_ivp()
+    assert ivp.y0.device == ivp.f(0.0, ivp.y0).device == ivp.df(0.0, ivp.y0).device == cuda
+    mol = pt.odetools.ek1.ReferenceEK1ConstantDiffusion(
+        num_derivatives=2, steprule=pt.odetools.step.Constant(0.1),
+        initialization=pt.odetools.init.TaylorMode())
+    sol, sigma_sq = mol.solve(ivp)
+    final, _ = mol.simulate_final_state(ivp)
+    adaptive, _ = pt.odetools.ek1.ReferenceEK1ConstantDiffusion(
+        num_derivatives=2, initialization=pt.odetools.init.Stack()).solve(ivp)
+    ref = pt.odetools.reference_solver.solve_ivp_dopri5(ivp.f, ivp.t_span, ivp.y0, [0.5])
+    solver = pt.white.LinearWhiteNoiseEK1(steprule=pt.odetools.step.Constant(0.1))
+    smoothed = pt.solvers.smoothing.smooth_solution(solver, solver.solve(heat))
+    outputs = [sol.t, sol.mean, sol.cov_sqrtm, sigma_sq, final.y.mean, final.y.cov_sqrtm,
+               adaptive.mean, ref.y, smoothed.mean, smoothed.cov_sqrtm]
+    for out in outputs:
+        assert out.device == cuda and not torch.isnan(out).any()
+    torch.testing.assert_close(sol.mean[-1, 0], ref.y[-1], rtol=1e-3, atol=1e-6)
+
+
+def test_mle_grid_launches_the_gram_kernel_once_per_trial(cuda):
+    """Figure 2's target on 512 points: each trial's 512 x 512 Gram takes the
+    kernel (Python-float scales); the chosen trial is the plain route's."""
+    X = torch.linspace(0.0, 1.0, 512, dtype=torch.float64, device=cuda)[:, None]
+    y = torch.sin(X[:, 0] ** 2)
+    trials = torch.logspace(-3, 3, 20, dtype=torch.float64)
+    before = tgram.gram_radial.launches
+    best = pt.kernels.mle_input_scale(mesh_points=X, data=y,
+                                      kernel_type=pt.kernels.SquareExponential,
+                                      input_scale_trials=trials)
+    assert tgram.gram_radial.launches == before + 20
+    plain = torch.stack([pt.kernels.log_likelihood(tgram.gram_radial_reference(
+        X, X, float(s), 1.0, phi_name="squared_exponential"), y, 512) for s in trials])
+    plain = torch.where(torch.isnan(plain), -float("inf"), plain)
+    assert float(best) == float(trials[int(torch.argmax(plain))])
+
+
+def test_log_likelihood_masks_a_singular_gram(cuda):
+    """cholesky_ex's info marks the failed factorization: NaN, where
+    torch.linalg.cholesky would raise, on the card as on the CPU."""
+    ones = torch.ones((64, 64), dtype=torch.float64, device=cuda)
+    y = torch.linspace(0.0, 1.0, 64, dtype=torch.float64, device=cuda)
+    value = pt.kernels.log_likelihood(ones, y, 64)
+    assert value.device == cuda and torch.isnan(value)
+    finite = pt.kernels.log_likelihood(ones + 63.0 * torch.eye(64, dtype=torch.float64,
+                                                              device=cuda), y, 64)
+    assert torch.isfinite(finite)

@@ -37,11 +37,12 @@ def test_no_jax_imports_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
-# the modules of the adaptive, semilinear and latent-force slice, and of the
-# large-N slice
+# the modules of the adaptive, semilinear and latent-force slice, of the
+# large-N slice, and of the MOL baseline and calibration slice
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
-                 "native")
+                 "native", "odetools.ek1", "odetools.init", "odetools.ivp",
+                 "odetools.reference_solver", "ops.kalman", "solvers.smoothing")
 
 
 def test_the_slice_modules_are_checked():

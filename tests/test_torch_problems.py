@@ -1,5 +1,6 @@
 """The port's problem layer against the JAX package (mirror of
-tests/test_problems.py, without the method-of-lines conversion): Neumann
+tests/test_problems.py; the method-of-lines conversion is held against JAX
+in tests/test_torch_ivp.py): Neumann
 boundaries, the SIR and Lotka-Volterra systems, spruce budworm with both
 boundary conditions, boundary padding, and the ``duplicate`` prior."""
 
@@ -174,7 +175,9 @@ def test_out_of_slice_problem_parts_raise():
     mesh = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], step=0.25, device=CPU)
     with pytest.raises(NotImplementedError, match="item 16"):
         pt.discretize.fd_probabilistic_neumann(mesh)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt.examples.heat_1d_discretized(dx=0.25, device=CPU).to_ivp()
+    # the method-of-lines conversion is ported: it needs a discretized problem
+    assert pt.examples.heat_1d_discretized(dx=0.25, device=CPU).to_ivp().y0.shape == (3,)
+    with pytest.raises(AttributeError, match="prior discretization"):
+        pt.examples.heat_1d().to_ivp()
     with pytest.raises(ValueError, match="Unknown boundary condition"):
         pt.examples.spruce_budworm_1d(bcond="periodic")
