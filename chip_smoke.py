@@ -93,7 +93,22 @@ Phases (any failure exits non-zero; nothing is swallowed):
     RMSE, chi2, steps and seconds;
 19. (D) calibration: ``kernels.mle_input_scale`` on a 512-point mesh (one
     radial-Gram launch per trial, 20) against the same grid through the
-    plain Gram, then 100 Adam steps of ``mle_input_scale_gradient``.
+    plain Gram, then 100 Adam steps of ``mle_input_scale_gradient``;
+20. (E) steady state at N = 512 (bench.py's steady configuration: nu = 2,
+    ``Constant(1e-2)``, f64): the seeded white solver through
+    ``"householder"`` and the plain path (the SDA seed on D = 1536, 4
+    polish iterations, 512 mean-only steps: max|u| against the JAX
+    package's 0.0405580823), the seconds of each initialization stage;
+    the unseeded white solver to tol 1e-10 on the kernel path, held to its
+    fixed point and to full steps seeded at it; the latent solver on both
+    paths; mean-only steps/s through ``solution_generator`` and a bare loop
+    beside the bytes bound;
+21. (F) steady state at the N = 1e4 point (nu = 1, ``Constant(1e-2)``,
+    ``"householder"``, ``fused=False``, ``propagate_band="banded"``, f64):
+    the SDA seed's Cholesky body on D = 2e4, the polish and harvest on the
+    leaf route, the stage seconds and the peak memory, the harvest against
+    the plain two-QR path, 512 mean-only steps beside the 0.96 ms bound,
+    and 3 full banded steps beside 3 frozen ones.
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -156,6 +171,13 @@ LARGE_N, LARGE_NU, LARGE_STEPS = 10000, 1, 5
 FIG4_DX, FIG4_TMAX, FIG4_REF_SCALE = 0.01, 1.0, 7
 FIG4_DTS = np.logspace(0.0, -2.5, 3)
 MLE_POINTS, MLE_TRIALS = 512, 20
+# steady state: bench.py's steady configuration (dt 1e-2) at N = 512 and at
+# the N = 1e4 point, 512 mean-only steps each; the JAX package's values at
+# N = 512 on the CPU (f64): 14 SDA iterations, 4 polish iterations, max|u|
+# 0.0999994 -> 0.0405580823 after 512 steps
+STEADY_DT, STEADY_STEPS = 1e-2, 512
+JAX_STEADY_SDA_ITERATIONS, JAX_STEADY_MAX_U = 14, 0.0405580823
+STEADY_UNSEEDED = {"seed": False, "tol": 1e-10, "max_iters": 3000}
 # the source of each kernel: the leaf QR is the panel kernel on the tall
 # layout, the LQ leaf the panel kernel on a leaf of a block
 SOURCES = {"panel_lq": "panel_lq", "leaf_lq": "panel_lq", "gram_radial": "gram_radial",
@@ -899,12 +921,12 @@ def phase_semilinear_latent(pt, dev, launches, card_line):
                  runs[None], d=22)
 
 
-def dx_adapted_heat(pt, dev, points, num_steps):
+def dx_adapted_heat(pt, dev, points, num_steps, dt=DT):
     """heat_1d on ``points`` mesh points with the dx-adapted FD kernel, to
-    ``num_steps`` steps of DT."""
+    ``num_steps`` steps of ``dt``."""
     dx = 1.0 / (points - 1)
     return pt.pde.examples.heat_1d_discretized(
-        dx=dx, tmax=num_steps * DT, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+        dx=dx, tmax=num_steps * dt, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
         device=dev,
     )
 
@@ -1334,6 +1356,290 @@ def phase_mle(pt, tgram, dev, launches, card_line):
           f"{scale:.10g} in {grad_s:.3f} s [{card_line}]", flush=True)
     check(np.isfinite(scale) and scale > 0, "gradient MLE: not finite")
 
+class StageTimer:
+    """Seconds of a steady initialization's stages: inside the ``with``
+    block the port's stage functions are wrapped, each call synchronized on
+    both ends. Stages: the SDA seed (``seed``, which holds the doublings),
+    each doubling (``doubling``; ``bodies`` lists the body each took), the
+    polish chunks (``polish``) and the harvest (``harvest``)."""
+
+    def __init__(self, pt):
+        self.targets = ((pt.white, "steady_state_sda_seed", "seed"),
+                        (pt.white, "converge_white_steady_state", None),
+                        (pt.latent, "converge_latent_steady_state", None),
+                        (pt.ops.dare, "_sda_step", "doubling"))
+        self.seconds, self.bodies, self.saved = {}, [], []
+
+    def __enter__(self):
+        self.saved = [(module, name, getattr(module, name)) for module, name, _ in self.targets]
+        for (module, name, stage), (_, _, fn) in zip(self.targets, self.saved):
+            setattr(module, name, self._wrap(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+    def _wrap(self, fn, stage):
+        def wrapped(*args, **kwargs):
+            if stage == "doubling":
+                self.bodies.append(args[3])
+            key = stage or ("harvest" if kwargs.get("harvest", True) else "polish")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def line(self, init_s):
+        """The stages, and the rest of the initialization (the normal init)."""
+        sec = dict.fromkeys(("seed", "doubling", "polish", "harvest"), 0.0) | self.seconds
+        rest = init_s - sec["seed"] - sec["polish"] - sec["harvest"]
+        doublings = (f"{len(self.bodies)} doublings ({', '.join(sorted(set(self.bodies)))} body) "
+                     f"{sec['doubling']:.3f} s" if self.bodies else "no doubling")
+        return (f"init {init_s:.3f} s: normal init {rest:.3f} s, SDA seed {sec['seed']:.3f} s "
+                f"({doublings}), polish {sec['polish']:.3f} s, harvest {sec['harvest']:.3f} s")
+
+
+def rel_max(a, b):
+    """max|a - b| / max|b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def steady_step_bound(solver):
+    """Bytes bound of one mean-only step: L21, Sl^{-1}, L and B read once,
+    the mean read and written, err_vec read, the error and reference
+    written; ``(bytes, ms)``."""
+    steady, cache = solver.steady_cache, solver._cache
+    mats = (steady.L21, steady.Sl_inv, cache.L, cache.B)
+    values = (sum(x.numel() for x in mats) + 2 * steady.L21.shape[0]
+              + 3 * steady.err_vec.numel())
+    nbytes = values * steady.L21.element_size()
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def bare_steps_per_s(solver, state, pde, num_steps):
+    """Mean-only steps through ``attempt_step`` with one synchronization at
+    the end; ``(steps/s, final state)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(num_steps):
+        state, _ = solver.attempt_step(state, STEADY_DT, pde)
+    torch.cuda.synchronize()
+    return num_steps / (time.perf_counter() - t0), state
+
+
+def report_steady(name, solver, init_line, card_line):
+    sc, info = solver.steady_cache, solver.steady_diagnostics
+    radius = pt_module(solver).steady_closed_loop_radius(
+        solver._cache, sc, STEADY_DT, num_derivatives=solver.num_derivatives).item()
+    seed = (f"SDA {info['sda_iterations']} iterations (last delta {info['sda_delta']:.3e}), "
+            f"dare_residual {info['dare_residual']:.3e}; " if info else "unseeded; ")
+    print(f"{name}: {init_line}; {seed}polish {sc.iterations} iterations, delta "
+          f"{sc.delta:.6e}; closed-loop radius {radius:.6f} [{card_line}]", flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in (sc.cov_inf, sc.L21, sc.Sl_inv, sc.err_vec)),
+          f"{name}: NaN or inf in the steady cache")
+    return radius
+
+
+def pt_module(solver):
+    """The solver family's module (white or latent)."""
+    return sys.modules[type(solver).__module__]
+
+
+def phase_steady(pt, dev, launches, card_line):
+    """E. Steady state at N = 512, bench.py's steady configuration (nu = 2,
+    Constant(1e-2), f64): the seeded white solver through "householder"
+    (init LQ 1538 rows: 13 panels; seed update and each polish step 2050
+    rows: 17) and the plain path, 512 mean-only steps each; the unseeded
+    white solver on the kernel path; the latent solver on both paths (init
+    21 panels, each polish step 29)."""
+    heat = dx_adapted_heat(pt, dev, N_POINTS, STEADY_STEPS, dt=STEADY_DT)
+    m, D = heat.L.shape[0] + heat.B.shape[0], (NU + 1) * N_POINTS
+    constant = pt.odetools.step.Constant(STEADY_DT)
+
+    def panels(rows):
+        return -(-rows // 128)
+
+    def white(factorization, opts=True):
+        return pt.white.LinearWhiteNoiseEK1(
+            steprule=constant, num_derivatives=NU, spatial_kernel=prior(pt),
+            factorization=factorization, steady_state=opts)
+
+    seeded = {}
+    for fac, label in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
+        solver = white(fac)
+        launches.reset()
+        with StageTimer(pt) as stages:
+            run = run_solver(solver, heat, num_steps=STEADY_STEPS)
+        sc, info = solver.steady_cache, solver.steady_diagnostics
+        per_step = panels(m + D)
+        launches.read(f"N={N_POINTS} steady white, {label}", {"panel_lq": (
+            panels(m + 2 * N_POINTS) + per_step + per_step * (sc.iterations + 1))} if fac else {})
+        name = f"N={N_POINTS} steady white, {label}"
+        report_steady(name, solver, stages.line(run["init_s"]), card_line)
+        report_run(name, run, card_line)
+        u = run["state"].y.mean[0].abs().max().item()
+        bare, _ = bare_steps_per_s(solver, run["state"], heat, STEADY_STEPS)
+        nbytes, bound_ms = steady_step_bound(solver)
+        print(f"{name}: max|u| after {STEADY_STEPS} mean-only steps {u:.10f} (the JAX package: "
+              f"{JAX_STEADY_MAX_U}, rel {abs(u / JAX_STEADY_MAX_U - 1):.3e}); "
+              f"{run['steady_steps_per_s']:.1f} steps/s through solution_generator (a sync a "
+              f"step), {bare:.1f} in a bare attempt_step loop; bytes bound {nbytes / 1e6:.2f} MB, "
+              f"{bound_ms * 1e3:.2f} us a step, the bare loop at {bound_ms * bare / 1e3:.2%} of "
+              f"it [{card_line}]", flush=True)
+        check(sc.iterations == 4, f"{name}: {sc.iterations} polish iterations, not 4")
+        check(abs(info["sda_iterations"] - JAX_STEADY_SDA_ITERATIONS) <= 1,
+              f"{name}: {info['sda_iterations']} SDA iterations")
+        check(info["dare_residual"] < 1e-6, f"{name}: dare_residual {info['dare_residual']:.3e}")
+        check(abs(u / JAX_STEADY_MAX_U - 1) <= 1e-5, f"{name}: max|u| {u} after the steps")
+        seeded[fac] = solver
+    a, b = seeded["householder"].steady_cache, seeded[None].steady_cache
+    errs = (rel_max(a.cov_inf @ a.cov_inf.T, b.cov_inf @ b.cov_inf.T),
+            rel_max(a.L21 @ a.Sl_inv, b.L21 @ b.Sl_inv), rel_max(a.err_vec, b.err_vec))
+    print(f"N={N_POINTS} steady white, kernel path vs plain path: cov_inf Gram rel {errs[0]:.3e}, "
+          f"gain rel {errs[1]:.3e}, err_vec rel {errs[2]:.3e} [{card_line}]", flush=True)
+    check(errs[0] <= 1e-8 and errs[1] <= 1e-6 and errs[2] <= 1e-8,
+          "steady white: the kernel path's cache disagrees with the plain path's")
+
+    # unseeded, to tol 1e-10, on the kernel path
+    solver = white("householder", STEADY_UNSEEDED)
+    launches.reset()
+    with StageTimer(pt) as stages:
+        state, init_s = timed_sync(lambda: solver.initialize(heat))
+    sc = solver.steady_cache
+    launches.read(f"N={N_POINTS} steady white unseeded, householder kernel",
+                  {"panel_lq": panels(m + 2 * N_POINTS) + panels(m + D) * (sc.iterations + 1)})
+    name = f"N={N_POINTS} steady white unseeded (tol 1e-10, max_iters 3000), householder kernel"
+    report_steady(name, solver, stages.line(init_s), card_line)
+    again = pt.white.converge_white_steady_state(
+        solver._cache, sc.cov_inf, STEADY_DT, num_derivatives=NU,
+        factorization=solver.factorization, max_iters=1)
+    fixed = rel_max(again.cov_inf @ again.cov_inf.T, sc.cov_inf @ sc.cov_inf.T)
+    mean_full, cov, frozen, worst = state.y.mean, sc.cov_inf, state, 0.0
+    for k in range(1, 9):
+        mean_full, cov, *_ = pt.white.white_attempt_step(
+            solver._cache, mean_full, cov, k * STEADY_DT, STEADY_DT, num_derivatives=NU,
+            factorization=solver.factorization)
+        frozen, _ = solver.attempt_step(frozen, STEADY_DT, heat)
+        worst = max(worst, rel_max(frozen.y.mean, mean_full))
+    s = seeded["householder"].steady_cache
+    gaps = (rel_max(s.cov_inf @ s.cov_inf.T, sc.cov_inf @ sc.cov_inf.T),
+            rel_max(s.L21 @ s.Sl_inv, sc.L21 @ sc.Sl_inv))
+    print(f"{name}: one more cov_step moves the cov_inf Gram {fixed:.3e} (rel); 8 frozen steps "
+          f"against 8 full steps seeded at cov_inf: mean rel {worst:.3e}; the default (seeded) "
+          f"cache against it: cov_inf Gram rel {gaps[0]:.3e}, gain rel {gaps[1]:.3e} "
+          f"[{card_line}]", flush=True)
+    check(fixed <= 1e-8, f"{name}: cov_inf is not a fixed point")
+    check(worst <= 1e-5, f"{name}: frozen steps leave the full steps")
+    check(bool(frozen.y.mean[0].abs().max() < state.y.mean[0].abs().max()),
+          f"{name}: heat did not decay")
+
+    # the latent solver (no seed), both paths
+    runs = {}
+    for fac, label in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
+        solver = pt.latent.LinearLatentForceEK1(
+            steprule=constant, num_derivatives=NU, spatial_kernel=prior(pt),
+            factorization=fac, steady_state=True)
+        launches.reset()
+        with StageTimer(pt) as stages:
+            run = run_solver(solver, heat, num_steps=STEADY_STEPS)
+        it = solver.steady_cache.iterations
+        launches.read(f"N={N_POINTS} steady latent, {label}",
+                      {"panel_lq": 21 + 29 * (it + 1)} if fac else {})
+        name = f"N={N_POINTS} steady latent, {label}"
+        report_steady(name, solver, stages.line(run["init_s"]), card_line)
+        report_run(name, run, card_line, d=N_POINTS)
+        runs[fac] = run
+    compare_runs("steady latent: kernel path vs plain path", runs["householder"], runs[None],
+                 d=N_POINTS)
+
+
+def phase_steady_large(pt, dev, launches, card_line):
+    """F. Steady state at the N = 1e4 point (nu = 1: D = 2e4, m = 10002;
+    Constant(1e-2), f64) through "householder", fused=False,
+    propagate_band="banded": the init update and the seed update are 30002
+    rows (469 leaves each), each polish step a 2e4-row propagate (313) and
+    a 30002-row update (469); the SDA on D = 2e4 takes the Cholesky body."""
+    d, n = LARGE_N, LARGE_NU + 1
+    heat = dx_adapted_heat(pt, dev, d, STEADY_STEPS, dt=STEADY_DT)
+    m, D = d + heat.B.shape[0], n * d
+    solver = pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(STEADY_DT), num_derivatives=LARGE_NU,
+        spatial_kernel=prior(pt), factorization="householder", fused=False,
+        propagate_band="banded", steady_state=True)
+    name = f"N={d} steady white, two-QR banded leaf route"
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    with StageTimer(pt) as stages:
+        state0, init_s = timed_sync(lambda: solver.initialize(heat))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    sc, info = solver.steady_cache, solver.steady_diagnostics
+    rate, final = bare_steps_per_s(solver, state0, heat, STEADY_STEPS)
+    per_step = leaf_launches(D, 256, 64) + leaf_launches(m + D, 256, 64)
+    launches.read(name, {"leaf_lq": leaf_launches(m + 2 * d, 256, 64)
+                         + leaf_launches(m + D, 256, 64) + per_step * (sc.iterations + 1)})
+    report_steady(name, solver, stages.line(init_s), card_line)
+    nbytes, bound_ms = steady_step_bound(solver)
+    u0, u = state0.y.mean[0].abs().max().item(), final.y.mean[0].abs().max().item()
+    print(f"{name}: peak memory {peak:.2f} GiB, of which {held:.2f} GiB held before; "
+          f"{STEADY_STEPS} mean-only steps at {rate:.1f} steps/s ({1e3 / rate:.3f} ms a step) "
+          f"against a bytes bound of {nbytes / 1e9:.3f} GB, {bound_ms:.3f} ms a step "
+          f"({bound_ms * rate / 1e3:.2%} of it); max|u| {u0:.10f} -> {u:.10f} [{card_line}]",
+          flush=True)
+    check(stages.bodies and set(stages.bodies) == {"chol"}, f"{name}: SDA bodies {stages.bodies}")
+    # the certificate's rounding floor grows with cond(sigma): on the CPU it
+    # reads 1.5e-9 at 512 points and 1e-7 at 1024 (nu = 1, either body), and
+    # 2.6e-5 here on an H100, with the doubling's last delta 4e-22
+    check(info["dare_residual"] < 1e-4, f"{name}: dare_residual {info['dare_residual']:.3e}")
+    check(bool(torch.isfinite(final.y.mean).all()), f"{name}: NaN or inf in the mean")
+
+    # the harvest from the same factor through the hook and the plain two-QR
+    # path (comparison launches: not counted)
+    cache = solver._cache
+    hook = pt.white.converge_white_steady_state(
+        cache, sc.cov_inf, STEADY_DT, num_derivatives=LARGE_NU, fused=False,
+        factorization=solver.factorization, propagate_band="banded", max_iters=0)
+    grams = (hook.cov_inf @ hook.cov_inf.T, hook.Sl @ hook.Sl.T, hook.L21 @ hook.Sl_inv)
+    del hook
+    plain = pt.white.converge_white_steady_state(
+        cache, sc.cov_inf, STEADY_DT, num_derivatives=LARGE_NU, fused=False, max_iters=0)
+    errs = (rel_max(grams[0], plain.cov_inf @ plain.cov_inf.T),
+            rel_max(grams[1], plain.Sl @ plain.Sl.T), rel_max(grams[2], plain.L21 @ plain.Sl_inv))
+    del grams, plain
+    print(f"{name}: harvest through the hook vs the plain two-QR path from the same factor: "
+          f"cov_inf Gram rel {errs[0]:.3e}, Sl Gram rel {errs[1]:.3e}, gain rel {errs[2]:.3e} "
+          f"[{card_line}]", flush=True)
+    check(max(errs[:2]) <= 1e-8, f"{name}: the harvests disagree")
+
+    # 3 full banded steps from the initial state seeded at cov_inf, beside 3
+    # frozen steps. From the initial covariance (phase 15) max|u| rises with
+    # (L u0) and the filter's initial derivative; from the stationary one it
+    # falls (on an H100: 0.1 -> 0.0990 in 3 steps). The two paths
+    # move it the same way and stay within the seeded gain's gap (the
+    # polish's last delta, 3.5e-4, moves the gain by about as much)
+    peak_i = state0.y.mean[0].abs().argmax()
+    sign = state0.y.mean[0, peak_i].sign()
+    slope = (heat.L[peak_i] @ state0.y.mean[0] * sign).item()
+    du0 = (state0.y.mean[1, peak_i] * sign).item()
+    mean_full, cov, frozen = state0.y.mean, sc.cov_inf, state0
+    for k in range(1, 4):
+        mean_full, cov, *_ = pt.white.white_attempt_step(
+            cache, mean_full, cov, k * STEADY_DT, STEADY_DT, num_derivatives=LARGE_NU,
+            factorization=solver.factorization, fused=False, propagate_band="banded")
+        frozen, _ = solver.attempt_step(frozen, STEADY_DT, heat)
+    del cov
+    u_full, u_frozen = mean_full[0].abs().max().item(), frozen.y.mean[0].abs().max().item()
+    print(f"{name}: 3 full banded steps from the initial state at cov_inf against 3 frozen "
+          f"steps: mean rel {rel_max(frozen.y.mean, mean_full):.3e}; max|u| {u0:.10f} -> "
+          f"{u_full:.10f} (full), {u_frozen:.10f} (frozen); at the initial peak (L u0) = "
+          f"{slope:.6e}, the initial derivative {du0:.6e} [{card_line}]", flush=True)
+    check((u_full > u0) == (u_frozen > u0), f"{name}: full and frozen steps move max|u| apart")
+    check(rel_max(frozen.y.mean, mean_full) <= 1e-3, f"{name}: frozen steps leave the full steps")
+
 
 def phase_build(cuda_build):
     """One nvcc per source, all started together."""
@@ -1398,6 +1704,8 @@ def main():
     phase_smoothing(pt, dev, launches, card_line)
     phase_figure4(pt, dev, launches, card_line)
     phase_mle(pt, tgram, dev, launches, card_line)
+    phase_steady(pt, dev, launches, card_line)
+    phase_steady_large(pt, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 

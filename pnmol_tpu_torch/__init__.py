@@ -51,6 +51,12 @@ and ``kernels.mle_input_scale`` calibrates a kernel's input scale::
         initialization=pt.odetools.init.Stack(use_df=False))
     sol, sigma_sq = mol.solve(ivp)
 
+Linear problems at constant steps also run in steady-state mode
+(``steady_state=True`` on ``LinearWhiteNoiseEK1`` or
+``LinearLatentForceEK1``): ``initialize`` freezes the stationary covariance,
+seeded by the doubling solver of ``ops.dare`` and polished through the
+step's own factorizations, and each step then updates the mean only.
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """

@@ -1,10 +1,10 @@
 """Build the port's objects from NumPy arrays.
 
-Hands a problem, a white- or latent-solver cache, or a PDE- or ODE-filter
-state that another implementation (for example the JAX package, converted
-with ``np.asarray``) produced to the port, so that both run from the same
-numbers. Takes NumPy
-arrays only; everything lands as float64 on ``device``.
+Hands a problem, a white- or latent-solver cache, a steady-state cache, or a
+PDE- or ODE-filter state that another implementation (for example the JAX
+package, converted with ``np.asarray``) produced to the port, so that both
+run from the same numbers. Takes NumPy arrays only; everything lands as
+float64 on ``device``.
 """
 
 import numpy as np
@@ -67,6 +67,16 @@ def latent_cache(*, A1d, Ql, L, B, device):
     return latent.LatentSolverCache(
         A1d=_tensor(A1d, device), Ql=_tensor(Ql, device), L=_tensor(L, device),
         B=_tensor(B, device),
+    )
+
+
+def steady_cache(*, cov_inf, L21, Sl, Sl_inv, err_vec, iterations, delta, device):
+    """A :class:`pnmol_tpu_torch.solvers.white.SteadyStateCache` (the frozen
+    blocks of either solver family's mean-only step)."""
+    return white.SteadyStateCache(
+        cov_inf=_tensor(cov_inf, device), L21=_tensor(L21, device), Sl=_tensor(Sl, device),
+        Sl_inv=_tensor(Sl_inv, device), err_vec=_tensor(err_vec, device),
+        iterations=int(iterations), delta=float(delta),
     )
 
 

@@ -11,7 +11,9 @@ step is the white solver's fused pipeline with a latent-aware measurement
 operator. The step carries an ``H Q H^T`` error estimate, so adaptive step
 rules work here too. Its pre-array is twice the white one in both
 dimensions; ``"householder"`` sizes its hooks for ``2d``. The two-QR
-pipeline (``fused=False``, ``propagate_band``) is the white solver's.
+pipeline (``fused=False``, ``propagate_band``) and steady-state mode are the
+white solver's; the latent steady state is converged without the doubling
+seed (its DARE has no finite solution).
 """
 
 import functools
@@ -24,9 +26,13 @@ from pnmol_tpu_torch.solvers import pdefilter
 from pnmol_tpu_torch.solvers.white import (
     FusedFactorizationFilter,
     _calibrate_and_update,
+    _closed_loop_radius,
+    _converge_steady_state,
+    _frozen_gain_update,
     _linearize,
     _predict_update,
     reduced_init_pde_update,
+    run_steady_convergence,
     structured_init_y0,
 )
 
@@ -101,6 +107,76 @@ def latent_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     # [Calibrate + mean update] and [Un-precondition]
     M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
     return M_new, C_new, error, torch.abs(M_new[0, :d]), diffusion_sq
+
+
+def converge_latent_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=True,
+                                 factorization=None, propagate_band=None, tol=1e-8,
+                                 max_iters=200, harvest=True):
+    """Iterate the latent step's covariance recursion (noise-free update) to
+    its fixed point: the latent analog of
+    :func:`pnmol_tpu_torch.solvers.white.converge_white_steady_state`, with
+    the same pipeline, stop rule and harvest."""
+    n = num_derivatives + 1
+    d = cache.L.shape[0]
+    m_dim = d + cache.B.shape[0]
+    p, p_inv = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=cov_sqrtm.dtype,
+                                       device=cov_sqrtm.device)
+    return _converge_steady_state(
+        cache, cov_sqrtm, dt, p, p_inv, _measurement_operator_latent(cache, cache.L, p, n, d),
+        cov_sqrtm.new_zeros((m_dim, m_dim)), num_derivatives=num_derivatives, fused=fused,
+        factorization=factorization, propagate_band=propagate_band, tol=tol,
+        max_iters=max_iters, harvest=harvest,
+    )
+
+
+def latent_dense_system(cache, dt, *, num_derivatives):
+    """Dense ``(A, H, Q, R, p)`` of the preconditioned stacked recursion:
+    transition ``kron(I_2d, A1d)``, the latent measurement operator applied
+    to the identity, ``Q = Ql Ql^T`` and an exactly zero ``R``."""
+    n = num_derivatives + 1
+    d = cache.L.shape[0]
+    Ql = cache.Ql
+    p, _ = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=Ql.dtype, device=Ql.device)
+    eye = torch.eye(Ql.shape[0], dtype=Ql.dtype, device=Ql.device)
+    A = iwp.apply_stack_matrix(cache.A1d, eye)
+    H = _measurement_operator_latent(cache, cache.L, p, n, d)(eye)
+    m_dim = d + cache.B.shape[0]
+    return A, H, Ql @ Ql.T, Ql.new_zeros((m_dim, m_dim)), p
+
+
+def steady_closed_loop_radius(cache, steady, dt, *, num_derivatives, num_iters=256):
+    """Spectral-radius estimate of the frozen latent closed loop (see
+    :func:`pnmol_tpu_torch.solvers.white.steady_closed_loop_radius`). The
+    latent force's integrator modes are undetectable and sit on the unit
+    circle as Jordan blocks, so a healthy loop reads slightly above 1
+    (``1 + O(nu log k / k)`` after k iterations)."""
+    d = cache.L.shape[0]
+    p, _ = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=cache.Ql.dtype,
+                                   device=cache.Ql.device)
+    apply_H = _measurement_operator_latent(cache, cache.L, p, num_derivatives + 1, d)
+    return _closed_loop_radius(cache, steady, apply_H, num_iters)
+
+
+def make_steady_state_latent_step(*, cache, steady, num_derivatives):
+    """Mean-only latent step with frozen stationary factors: the contract of
+    :func:`latent_attempt_step`, the covariance passed through unchanged."""
+    n = num_derivatives + 1
+    d = cache.L.shape[0]
+    # the scales of a dt are built once: each build copies them host to device
+    scales = functools.lru_cache(maxsize=4)(functools.partial(
+        iwp.nordsieck_scales_1d, num_derivatives, dtype=steady.L21.dtype,
+        device=steady.L21.device))
+
+    def step(mean, cov, t_next, dt):
+        p, p_inv = scales(dt)
+        Mp = cache.A1d @ (mean * p_inv[:, None])
+        state_at = p[0] * Mp[0, :d]
+        z = torch.cat((p[1] * Mp[1, :d] - cache.L @ state_at - p[0] * Mp[0, d:],
+                       cache.B @ state_at))
+        M_new, error, diffusion_sq = _frozen_gain_update(steady, Mp, z, p, n)
+        return M_new, cov, error, torch.abs(M_new[0, :d]), diffusion_sq
+
+    return step
 
 
 class _LatentForceEK1Base(FusedFactorizationFilter):
@@ -195,12 +271,30 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
             A1d=merged.preconditioned_discretize_1d[0], Ql=merged.process_noise_factor,
             L=L, B=B,
         )
-        self._step_fn = functools.partial(
-            latent_attempt_step, self._cache,
-            num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-            factorization=self.factorization, fused=self.fused,
-            propagate_band=self.propagate_band, ek_order=self.EK_ORDER,
-        )
+        opts = self._steady_options()
+        if opts is None:
+            self._step_fn = functools.partial(
+                latent_attempt_step, self._cache,
+                num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
+                factorization=self.factorization, fused=self.fused,
+                propagate_band=self.propagate_band, ek_order=self.EK_ORDER,
+            )
+        else:
+            # no doubling seed: the latent force's integrator modes are
+            # undetectable, so the covariance grows like a random walk while
+            # the gain converges; the recursion's Gram-diagonal stationarity
+            # stands in for the gain's
+            self.steady_cache = run_steady_convergence(
+                converge_latent_steady_state, self._cache, C0, float(self.steprule.dt), opts,
+                1e-8 if m0.dtype == torch.float64 else 1e-5,
+                num_derivatives=self.num_derivatives, fused=self.fused,
+                factorization=self.factorization, propagate_band=self.propagate_band,
+            )
+            C0 = self.steady_cache.cov_inf
+            self._step_fn = make_steady_state_latent_step(
+                cache=self._cache, steady=self.steady_cache,
+                num_derivatives=self.num_derivatives,
+            )
 
         # point-major glue: [state (n, d) | latent (n, d)] along the last axis
         m0_state, m0_latent = torch.chunk(m0, 2)

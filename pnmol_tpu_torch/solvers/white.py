@@ -11,17 +11,22 @@ QR with the CUDA leaf kernel
 (:func:`pnmol_tpu_torch.ops.qr_householder.make_householder_factorization`);
 or, with ``fused=False``, the two-QR pipeline: one propagate LQ and one
 update LQ, the large-N form (optionally banded, ``propagate_band``).
+Steady-state mode (``steady_state=True`` or an options dict, linear problems
+at constant steps) converges the covariance recursion once at
+initialization, from the doubling seed of :mod:`pnmol_tpu_torch.ops.dare`
+through the same factorizations, and then steps the mean only.
 The state lives in the point-major Nordsieck layout of
 :mod:`pnmol_tpu_torch.ops.iwp`, so the measurement matrix ``H`` is never
 materialized.
 """
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from pnmol_tpu_torch.ops import iwp, qr_householder, rv, sqrt
+from pnmol_tpu_torch.odetools import step as step_module
+from pnmol_tpu_torch.ops import dare, iwp, qr_householder, rv, sqrt
 from pnmol_tpu_torch.solvers import pdefilter
 
 
@@ -123,6 +128,11 @@ def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim):
     return M_new, iwp.scale_stack(p, Cl_new), diffusion_sq
 
 
+def _meascov_factor(cache, dt, meascov_dt_scaled):
+    """The measurement noise factor: ``sqrt(dt) E`` with ``meascov_dt_scaled``."""
+    return dt**0.5 * cache.E_bc_sqrtm if meascov_dt_scaled else cache.E_bc_sqrtm
+
+
 def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
                        f=None, df=None, linear=True, factorization=None, fused=True,
                        propagate_band=None, meascov_dt_scaled=False, ek_order=1):
@@ -145,9 +155,7 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     p, p_inv = iwp.nordsieck_scales_1d(
         num_derivatives, dt, dtype=mean.dtype, device=mean.device
     )
-    E_bc = cache.E_bc_sqrtm
-    if meascov_dt_scaled:
-        E_bc = dt**0.5 * E_bc
+    E_bc = _meascov_factor(cache, dt, meascov_dt_scaled)
 
     # [Precondition] and [Predict mean]
     M = mean * p_inv[:, None]
@@ -242,6 +250,328 @@ def resolve_householder_hooks(d: int, *, pair_columns: bool = False):
     return factorization, init_update
 
 
+# ---------------------------------------------------------------------------
+# Steady-state mode: the Riccati fixed point, its doubling seed, and the
+# mean-only step with the frozen blocks
+# ---------------------------------------------------------------------------
+
+
+class SteadyStateCache(NamedTuple):
+    """Frozen factor blocks of the steady-state (stationary) step."""
+
+    cov_inf: torch.Tensor  # (D, D) stationary posterior factor (unpreconditioned)
+    L21: Optional[torch.Tensor]  # (D, m) stationary cross block (preconditioned)
+    Sl: Optional[torch.Tensor]  # (m, m) stationary innovation factor (preconditioned)
+    Sl_inv: Optional[torch.Tensor]  # (m, m) its inverse: the step whitens by a matvec
+    err_vec: Optional[torch.Tensor]  # (d,) dt * sqrt(diag(S)), the error estimate's base
+    iterations: int  # Riccati iterations run
+    delta: float  # final relative change of the Gram diagonal
+
+
+def _triangular_inverse(Sl):
+    """Explicit inverse of a lower-triangular factor (one m-RHS solve)."""
+    eye = torch.eye(Sl.shape[0], dtype=Sl.dtype, device=Sl.device)
+    return torch.linalg.solve_triangular(Sl, eye, upper=False)
+
+
+def _converge_steady_state(cache, cov_sqrtm, dt, p, p_inv, apply_H, E, *, num_derivatives,
+                           fused, factorization, propagate_band, tol, max_iters, harvest):
+    """The covariance recursion of one step, iterated from ``cov_sqrtm``
+    while ``it < max_iters and (it < 2 or delta >= tol)``, ``delta`` the
+    relative change of the Gram diagonal. Each iteration is the step's own
+    predict and update (:func:`_predict_update`: the same pipeline and hook)
+    with the measurement noise factor ``E``. ``harvest`` adds one more
+    iteration from the last factor for the frozen blocks, the inverse
+    innovation factor and the error-estimate base ``dt sqrt(diag(S))`` (row
+    norms of ``H Ql`` and ``E``); without it those fields are None."""
+    n = num_derivatives + 1
+    d = cache.L.shape[0]
+    HQl = apply_H(cache.Ql)
+
+    def cov_step(C_unpre):
+        ACl = iwp.apply_stack_matrix(cache.A1d, iwp.scale_stack(p_inv, C_unpre))
+        Cl_new, L21, K, Sl = _predict_update(factorization, fused, propagate_band, apply_H,
+                                             ACl, HQl, cache.Ql, E, n)
+        if K is not None:  # back out the cross block: S_xz = K S = L21 Sl^T
+            L21 = K @ Sl
+        return iwp.scale_stack(p, Cl_new), L21, Sl
+
+    tiny = torch.finfo(cov_sqrtm.dtype).tiny
+    C, it, delta = cov_sqrtm, 0, float("inf")
+    diag = torch.einsum("ij,ij->i", C, C)
+    while it < max_iters and (it < 2 or delta >= tol):
+        C = cov_step(C)[0]
+        diag_new = torch.einsum("ij,ij->i", C, C)
+        delta = ((diag_new - diag).abs().max() / (diag_new.max() + tiny)).item()
+        diag = diag_new
+        it += 1
+    if not harvest:
+        return SteadyStateCache(cov_inf=C, L21=None, Sl=None, Sl_inv=None, err_vec=None,
+                                iterations=it, delta=delta)
+    C_inf, L21, Sl = cov_step(C)
+    s_diag = torch.einsum("ij,ij->i", HQl, HQl) + torch.einsum("ij,ij->i", E, E)
+    return SteadyStateCache(cov_inf=C_inf, L21=L21, Sl=Sl, Sl_inv=_triangular_inverse(Sl),
+                            err_vec=dt * torch.sqrt(s_diag)[:d], iterations=it, delta=delta)
+
+
+def converge_white_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=True,
+                                factorization=None, propagate_band=None,
+                                meascov_dt_scaled=False, tol=1e-8, max_iters=200, harvest=True):
+    """Iterate the white step's covariance recursion to its fixed point.
+
+    For linear problems at constant ``dt`` the measurement operator is
+    time-invariant, so the covariance half of the recursion is
+    data-independent and converges to the square-root solution of the DARE.
+    This runs that recursion through the step's own pipeline (the same QRs
+    and hook) and returns a :class:`SteadyStateCache` with the frozen blocks
+    of one more step from the converged factor (``harvest=False`` skips
+    them)."""
+    n = num_derivatives + 1
+    p, p_inv = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=cov_sqrtm.dtype,
+                                       device=cov_sqrtm.device)
+    return _converge_steady_state(
+        cache, cov_sqrtm, dt, p, p_inv, _measurement_operator(cache, cache.L, p, n),
+        _meascov_factor(cache, dt, meascov_dt_scaled), num_derivatives=num_derivatives,
+        fused=fused, factorization=factorization, propagate_band=propagate_band, tol=tol,
+        max_iters=max_iters, harvest=harvest,
+    )
+
+
+def white_dense_system(cache, dt, *, num_derivatives, meascov_dt_scaled=False):
+    """Dense ``(A, H, Q, R, p)`` of the preconditioned step recursion:
+    transition ``kron(I_d, A1d)``, the measurement operator applied to the
+    identity, ``Q = Ql Ql^T`` and ``R = E E^T``. The Nordsieck scales cancel
+    between consecutive steps, so the fixed point lives in these coordinates.
+    Only the doubling seed materializes them."""
+    n = num_derivatives + 1
+    Ql = cache.Ql
+    p, _ = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=Ql.dtype, device=Ql.device)
+    E_bc = _meascov_factor(cache, dt, meascov_dt_scaled)
+    eye = torch.eye(Ql.shape[0], dtype=Ql.dtype, device=Ql.device)
+    A = iwp.apply_stack_matrix(cache.A1d, eye)
+    H = _measurement_operator(cache, cache.L, p, n)(eye)
+    del eye
+    return A, H, Ql @ Ql.T, E_bc @ E_bc.T, p
+
+
+def _factored_dare_residual(sigma, Wh, A1d, Ql):
+    """The DARE residual of :func:`pnmol_tpu_torch.ops.dare.dare_residual`
+    without dense ``A``, ``G`` or ``Q``: with ``sigma = C C^T`` and ``G =
+    Wh^T Wh``, ``sigma (I + G sigma)^{-1} = Y^T Y`` for ``Y = Lm^{-1} C^T``,
+    ``I + (Wh C)^T (Wh C) = Lm Lm^T``; the transition applies through its
+    point blocks and the noise through its factor. A float; NaN where
+    ``sigma`` has no Cholesky factor (as the JAX package's NaN factor makes
+    it): a reported certificate, not a fallback."""
+    tiny = torch.finfo(sigma.dtype).tiny
+    sig = dare._symmetrized(sigma)
+    shifted = sig.clone()
+    shifted.diagonal().add_(16.0 * torch.finfo(sig.dtype).eps * sig.abs().max())
+    C, info = torch.linalg.cholesky_ex(shifted)
+    del shifted
+    if info.item():
+        return float("nan")
+    Z = Wh @ C
+    M = Z.T @ Z
+    del Z
+    M.diagonal().add_(1.0)
+    Lm = torch.linalg.cholesky(dare._symmetrized(M))
+    del M
+    Y = torch.linalg.solve_triangular(Lm, C.T, upper=False)
+    del C, Lm
+    X = Y.T @ Y
+    del Y
+    # A X A^T = A (A X)^T for symmetric X
+    T1 = iwp.apply_stack_matrix(A1d, X)
+    del X
+    F = iwp.apply_stack_matrix(A1d, T1.T)
+    del T1
+    F.addmm_(Ql, Ql.T)
+    return ((sig - F).abs().max() / (sig.abs().max() + tiny)).item()
+
+
+def sda_seed_from_dense(A, H, Q, R, p, *, meascov_sqrtm, residual_fn, bc_nugget=1e-6,
+                        max_iters=64, tol=None, update_blocks=None):
+    """The doubling seed over a dense ``(A, H, Q, R)`` system: ``(C0, info)``
+    with ``C0`` the stationary POSTERIOR factor, unpreconditioned by ``p``.
+
+    ``G0 = H^T R^{-1} H`` needs an invertible ``R``: its diagonal is floored
+    at ``bc_nugget^2`` times the innovation scale (the larger of ``max
+    diag(R)`` and ``max diag(H Q H^T)``), since Dirichlet rows carry exact
+    measurements. The predicted fixed point of :func:`dare.sda` (``tol``
+    1e-12 in f64, 1e-6 otherwise) is certified by ``residual_fn(sigma, Wh)``
+    (``Wh = Lr^{-1} H``), factorized by Cholesky (retried once with an
+    eps-scaled jitter where it fails), and updated once with the exact noise
+    factor ``meascov_sqrtm`` by ``update_blocks(HC, C, R) -> (posterior,
+    L21, L1)`` (default the plain :func:`sqrt.update_sqrt_from_products_blocks`),
+    of which only the posterior is kept. ``info`` holds ``sda_iterations``,
+    ``sda_delta`` and ``dare_residual``."""
+    dtype = Q.dtype
+    if tol is None:
+        tol = 1e-12 if dtype == torch.float64 else 1e-6
+    HQ_gram_diag = torch.einsum("ij,ij->i", H @ Q, H)
+    scale = torch.maximum(torch.diagonal(R).max(), HQ_gram_diag.max())
+    R_eps = R.clone()
+    R_eps.diagonal().add_(bc_nugget**2 * scale)
+    Lr = torch.linalg.cholesky(R_eps)
+    del R_eps
+    Wh = torch.linalg.solve_triangular(Lr, H, upper=False)
+    del Lr
+    G0 = Wh.T @ Wh
+    res = dare.sda(A, G0, Q, tol=tol, max_iters=max_iters)
+    del G0
+    residual = residual_fn(res.sigma, Wh)
+    del Wh
+    sigma = dare._symmetrized(res.sigma)
+    info = {"sda_iterations": res.iterations, "sda_delta": res.delta,
+            "dare_residual": residual}
+    del res
+    # the PREDICTED fixed point is PD (sigma >= Q > 0); the filtered one is
+    # rank-deficient along the exact boundary rows, so it comes from one
+    # square-root update of the predicted factor
+    C_pred, failed = torch.linalg.cholesky_ex(sigma)
+    if failed.item():
+        sigma.diagonal().add_(torch.finfo(dtype).eps * torch.diagonal(sigma).max())
+        C_pred = torch.linalg.cholesky(sigma)
+    del sigma
+    update_blocks = update_blocks or sqrt.update_sqrt_from_products_blocks
+    C_post = update_blocks(H @ C_pred, C_pred, meascov_sqrtm)[0]
+    del C_pred
+    return iwp.scale_stack(p, C_post), info
+
+
+def steady_state_sda_seed(cache, dt, *, num_derivatives, meascov_dt_scaled=False,
+                          bc_nugget=1e-6, max_iters=64, tol=None, update_blocks=None):
+    """The white step's stationary posterior factor by doubling (SDA):
+    ``(C0, info)`` from :func:`sda_seed_from_dense` on
+    :func:`white_dense_system`, certified by :func:`_factored_dare_residual`.
+    ``~log2(1/(lambda_min dt))`` doubling iterations replace the recursion's
+    ``O(1/dt)``; the polish of :func:`run_steady_convergence` then derives
+    the frozen blocks through the step's own pipeline."""
+    A, H, Q, R, p = white_dense_system(cache, dt, num_derivatives=num_derivatives,
+                                       meascov_dt_scaled=meascov_dt_scaled)
+    return sda_seed_from_dense(
+        A, H, Q, R, p, meascov_sqrtm=_meascov_factor(cache, dt, meascov_dt_scaled),
+        residual_fn=lambda sigma, Wh: _factored_dare_residual(sigma, Wh, cache.A1d, cache.Ql),
+        bc_nugget=bc_nugget, max_iters=max_iters, tol=tol, update_blocks=update_blocks,
+    )
+
+
+def _closed_loop_radius(cache, steady, apply_H, num_iters):
+    """Power-iteration radius of ``T = (I - K H) A`` with the frozen gain,
+    from a start vector of ``torch.Generator`` seed 0."""
+    Ql = cache.Ql
+
+    def apply_T(v):
+        va = iwp.apply_stack_matrix(cache.A1d, v)
+        return va - steady.L21 @ (steady.Sl_inv @ apply_H(va))
+
+    generator = torch.Generator(device=Ql.device).manual_seed(0)
+    v0 = torch.randn(Ql.shape[0], generator=generator, dtype=Ql.dtype, device=Ql.device)
+    return dare.closed_loop_growth(apply_T, v0, num_iters)
+
+
+def steady_closed_loop_radius(cache, steady, dt, *, num_derivatives, num_iters=256):
+    """Spectral-radius estimate of the frozen white closed loop, on the
+    operator the mean-only step applies (matvecs only): ``rho < 1``
+    certifies the frozen-gain recursion stable."""
+    p, _ = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=cache.Ql.dtype,
+                                   device=cache.Ql.device)
+    apply_H = _measurement_operator(cache, cache.L, p, num_derivatives + 1)
+    return _closed_loop_radius(cache, steady, apply_H, num_iters)
+
+
+def _torch_dtype(dtype):
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def run_steady_convergence(converge_fn, cache, C0, dt0, opts, default_tol, seed_fn=None,
+                           diagnostics=None, **converge_kwargs):
+    """The Riccati convergence of both solver families, in chunks.
+
+    ``opts``: ``tol`` (``default_tol``), ``max_iters``, ``chunk_iters``,
+    ``seed`` and ``dtype``. With a ``seed_fn(cache, dt) -> (C0, info)`` and
+    ``seed`` not False, the doubling seed replaces ``C0`` (its ``info``
+    merges into ``diagnostics``) and the recursion only polishes: by default
+    at most 4 iterations in chunks of 2; unseeded, 200 in chunks of 50 (10
+    when promoting). Each chunk is one :func:`converge_fn` call with
+    ``harvest=False`` (each runs at least ``min(2, chunk)`` iterations), and
+    convergence is checked between chunks; one last call with
+    ``max_iters=0`` harvests the frozen blocks from the final factor.
+
+    ``dtype`` (e.g. ``"float64"`` on an f32 problem) runs the recursion in
+    that type on a cast of the cache, on the plain two-QR pipeline and the
+    plain seed update, at ``default_tol`` 1e-8, and casts the blocks back.
+    """
+    out_dtype = C0.dtype
+    ric_dtype = opts.get("dtype")
+    promote = ric_dtype is not None and _torch_dtype(ric_dtype) != out_dtype
+    if promote:
+        ric_dtype = _torch_dtype(ric_dtype)
+        converge_kwargs = dict(converge_kwargs, factorization=None, fused=False,
+                               propagate_band=None)
+        if seed_fn is not None:
+            seed_fn = functools.partial(seed_fn, update_blocks=None)
+        cache = type(cache)(*(x.to(ric_dtype) for x in cache))
+        C0 = C0.to(ric_dtype)
+        default_tol = 1e-8
+
+    use_seed = seed_fn is not None and opts.get("seed", True)
+    max_iters = opts.get("max_iters", 4 if use_seed else 200)
+    if max_iters < 1:
+        raise ValueError(f"steady_state max_iters must be at least 1, got {max_iters}")
+    chunk = min(opts.get("chunk_iters", 2 if use_seed else (10 if promote else 50)), max_iters)
+    tol = opts.get("tol", default_tol)
+    if use_seed:
+        C0, seed_info = seed_fn(cache, dt0)
+        if diagnostics is not None:
+            diagnostics.update(seed_info)
+
+    converge = functools.partial(converge_fn, cache, dt=dt0, tol=tol, **converge_kwargs)
+    total_iters, delta, C_cur = 0, float("inf"), C0
+    while total_iters < max_iters and (total_iters == 0 or delta >= tol):
+        sc = converge(C_cur, max_iters=chunk, harvest=False)
+        C_cur, delta = sc.cov_inf, sc.delta
+        total_iters += sc.iterations
+    sc = converge(C_cur, max_iters=0, harvest=True)._replace(iterations=total_iters, delta=delta)
+    if promote:
+        sc = sc._replace(**{k: v.to(out_dtype) for k, v in sc._asdict().items()
+                            if isinstance(v, torch.Tensor)})
+    return sc
+
+
+def _frozen_gain_update(steady, Mp, z, p, n):
+    """The mean update with the frozen blocks: the residual whitened by the
+    matvec ``Sl^{-1} z``, the local diffusion, ``K z = L21 (Sl^{-1} z)`` and
+    the un-preconditioning. Returns ``(mean (n, d'), error, diffusion_sq)``."""
+    residual_white = steady.Sl_inv @ z
+    diffusion_sq = residual_white @ residual_white / z.shape[0]
+    m_new_flat = iwp.mean_to_flat(Mp) - steady.L21 @ residual_white
+    M_new = iwp.flat_to_mean(m_new_flat, n) * p[:, None]
+    return M_new, steady.err_vec * torch.sqrt(diffusion_sq), diffusion_sq
+
+
+def make_steady_state_white_step(*, cache, steady, num_derivatives):
+    """Mean-only white step with frozen stationary factors: the contract of
+    :func:`white_attempt_step`, the covariance passed through unchanged.
+    Each step is three matvecs (``L m``, ``Sl^{-1} z``, ``L21 w``) and no
+    factorization."""
+    n = num_derivatives + 1
+    # the scales of a dt are built once: each build copies them host to device
+    scales = functools.lru_cache(maxsize=4)(functools.partial(
+        iwp.nordsieck_scales_1d, num_derivatives, dtype=steady.L21.dtype,
+        device=steady.L21.device))
+
+    def step(mean, cov, t_next, dt):
+        p, p_inv = scales(dt)
+        Mp = cache.A1d @ (mean * p_inv[:, None])
+        m_at = p[0] * Mp[0]
+        z = torch.cat((p[1] * Mp[1] - cache.L @ m_at, cache.B @ m_at))
+        M_new, error, diffusion_sq = _frozen_gain_update(steady, Mp, z, p, n)
+        return M_new, cov, error, torch.abs(M_new[0]), diffusion_sq
+
+    return step
+
+
 class FusedFactorizationFilter(pdefilter.PDEFilter):
     """The factorization options both solver families share.
 
@@ -261,16 +591,21 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
     triangular support; ``"interleaved"`` also interleaves the propagate's
     point blocks, for which ``initialize`` re-triangularizes the initial
     factor. With ``fused=True`` a band asks the hook for its banded fused
-    pre-array. Steady-state mode raises ``NotImplementedError``.
+    pre-array.
+
+    ``steady_state`` (``True``, or a dict of :func:`run_steady_convergence`
+    options; an empty dict means on) freezes the stationary covariance at
+    initialization, for LINEAR solvers with a ``Constant`` rule: the steps
+    then update the mean only (:attr:`steady_cache`,
+    :attr:`steady_diagnostics`).
     """
 
     def __init__(self, *args, factorization=None, fused=True, propagate_band=None,
                  steady_state=False, **kwargs):
         super().__init__(*args, **kwargs)
-        if steady_state or isinstance(steady_state, dict):
-            raise NotImplementedError(
-                "steady-state mode is not ported yet (ROADMAP queue 1, item 15)"
-            )
+        self.steady_state = steady_state
+        self.steady_cache = None
+        self.steady_diagnostics = None
         self._factorization_spec = factorization
         self._factorization_d = None
         self.factorization = None if factorization == "householder" else factorization
@@ -299,6 +634,24 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
             return C0
         tri = getattr(self.factorization, "tri", None)
         return tri(C0) if tri is not None else torch.linalg.qr(C0.T, mode="r")[1].T
+
+    def _steady_options(self):
+        """None when steady-state mode is off, else its options, after the
+        guards of the JAX package: a LINEAR solver and a Constant rule."""
+        if not (self.steady_state or isinstance(self.steady_state, dict)):
+            return None
+        if not self.LINEAR:
+            raise ValueError(
+                "steady_state mode requires a LINEAR solver: the covariance recursion is "
+                "data-dependent for EK1-linearized problems."
+            )
+        if not isinstance(self.steprule, step_module.Constant):
+            raise ValueError(
+                "steady_state mode requires a Constant step rule (the stationary factors "
+                "are specific to one dt)."
+            )
+        self.steady_diagnostics = {}
+        return self.steady_state if isinstance(self.steady_state, dict) else {}
 
     def _step_function(self, pde):
         return self._step_fn
@@ -374,18 +727,40 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         m0, C0 = reduced_init_pde_update(
             [C00] + [B1] * (n - 1), HCsub, E_bc_nugget, z_pde, u0, update_blocks
         )
+        del gram, y0_blocks, C00, B1, HCsub, E_bc_nugget  # not held through a steady seed
         C0 = self._initial_factor(C0)
 
         self._cache = WhiteSolverCache(
             A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
         )
-        self._step_fn = functools.partial(
-            white_attempt_step, self._cache,
-            num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-            factorization=self.factorization, fused=self.fused,
-            propagate_band=self.propagate_band,
-            meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
-        )
+        opts = self._steady_options()
+        if opts is None:
+            self._step_fn = functools.partial(
+                white_attempt_step, self._cache,
+                num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
+                factorization=self.factorization, fused=self.fused,
+                propagate_band=self.propagate_band,
+                meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
+            )
+        else:
+            # the doubling seed's posterior update runs the init update hook
+            seed_fn = functools.partial(
+                steady_state_sda_seed, num_derivatives=self.num_derivatives,
+                meascov_dt_scaled=self.meascov_dt_scaled, update_blocks=update_blocks,
+                **{k: opts[k] for k in ("bc_nugget",) if k in opts},
+            )
+            self.steady_cache = run_steady_convergence(
+                converge_white_steady_state, self._cache, C0, float(self.steprule.dt), opts,
+                1e-8 if m0.dtype == torch.float64 else 1e-5, seed_fn=seed_fn,
+                diagnostics=self.steady_diagnostics, num_derivatives=self.num_derivatives,
+                fused=self.fused, factorization=self.factorization,
+                propagate_band=self.propagate_band, meascov_dt_scaled=self.meascov_dt_scaled,
+            )
+            C0 = self.steady_cache.cov_inf
+            self._step_fn = make_steady_state_white_step(
+                cache=self._cache, steady=self.steady_cache,
+                num_derivatives=self.num_derivatives,
+            )
         self.iwp = trans
         return pdefilter.PDEFilterState(
             t=float(pde.t0),

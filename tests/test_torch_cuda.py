@@ -387,3 +387,58 @@ def test_log_likelihood_masks_a_singular_gram(cuda):
     finite = pt.kernels.log_likelihood(ones + 63.0 * torch.eye(64, dtype=torch.float64,
                                                               device=cuda), y, 64)
     assert torch.isfinite(finite)
+
+
+# --- steady-state mode ------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["white", "latent"])
+def test_steady_state_through_the_panel_kernel_matches_the_plain_path(cuda, kind):
+    """Steady state at dx = 0.05 (one 128-row panel per sweep) through
+    "householder" and through the plain path: the same polish iterations,
+    cov_inf Grams and gains within 1e-8, the white seed's SDA iterations
+    equal, and the panel kernel launched by the kernel path only."""
+    heat = pt.examples.heat_1d_discretized(dx=0.05, tmax=0.2, device=cuda)
+    cls = pt.white.LinearWhiteNoiseEK1 if kind == "white" else pt.latent.LinearLatentForceEK1
+    runs = {}
+    for factorization in ("householder", None):
+        solver = cls(steprule=pt.odetools.step.Constant(0.01), steady_state=True,
+                     factorization=factorization)
+        before = tq.panel_lq.launches
+        sol = solver.solve(heat)
+        torch.cuda.synchronize()
+        runs[factorization] = (solver, sol, tq.panel_lq.launches - before)
+    (hh, hh_sol, hh_launches), (plain, plain_sol, plain_launches) = runs["householder"], runs[None]
+    assert hh_launches > 0 and plain_launches == 0
+    a, b = hh.steady_cache, plain.steady_cache
+    assert a.iterations == b.iterations and a.cov_inf.device == cuda
+    if kind == "white":
+        assert hh.steady_diagnostics["sda_iterations"] == plain.steady_diagnostics["sda_iterations"]
+        assert hh.steady_diagnostics["dare_residual"] < 1e-6
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
+
+    assert rel(a.cov_inf @ a.cov_inf.T, b.cov_inf @ b.cov_inf.T) <= 1e-8
+    assert rel(a.L21 @ a.Sl_inv, b.L21 @ b.Sl_inv) <= 1e-8
+    assert torch.isfinite(hh_sol.mean).all() and hh_sol.mean.device == cuda
+    assert rel(hh_sol.mean[..., :21], plain_sol.mean[..., :21]) <= 1e-8
+
+
+@pytest.mark.parametrize("solver", ["qr", "chol"])
+def test_sda_on_the_card_matches_the_cpu(cuda, solver):
+    """The doubling on CUDA tensors against the same doubling on the CPU:
+    equal iterations, sigma within rel 1e-10, the certificate below 1e-10."""
+    rng = np.random.default_rng(7)
+    D = 48
+    M = rng.standard_normal((D, D))
+    A = 0.9 * M / np.abs(np.linalg.eigvals(M)).max()
+    Gh, Qh = rng.standard_normal((D, D)), rng.standard_normal((D, D))
+    G, Q = Gh @ Gh.T / D + 0.1 * np.eye(D), Qh @ Qh.T / D + 0.1 * np.eye(D)
+    cpu = pt.ops.dare.sda(*(torch.tensor(x) for x in (A, G, Q)), tol=1e-13, solver=solver)
+    gpu_inputs = [torch.tensor(x, device=cuda) for x in (A, G, Q)]
+    gpu = pt.ops.dare.sda(*gpu_inputs, tol=1e-13, solver=solver)
+    assert gpu.sigma.device == cuda and gpu.iterations == cpu.iterations
+    rel = ((gpu.sigma.cpu() - cpu.sigma).abs().max() / cpu.sigma.abs().max()).item()
+    assert rel <= 1e-10
+    assert pt.ops.dare.dare_residual(gpu.sigma, *gpu_inputs).item() < 1e-10

@@ -38,11 +38,12 @@ def test_no_jax_imports_in_source(path):
 
 
 # the modules of the adaptive, semilinear and latent-force slice, of the
-# large-N slice, and of the MOL baseline and calibration slice
+# large-N slice, of the MOL baseline and calibration slice, and of
+# steady-state mode
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
-                 "odetools.reference_solver", "ops.kalman", "solvers.smoothing")
+                 "odetools.reference_solver", "ops.kalman", "solvers.smoothing", "ops.dare")
 
 
 def test_the_slice_modules_are_checked():

@@ -172,19 +172,34 @@ CONSTANT = pt.odetools.step.Constant(0.1)
 @pytest.mark.parametrize(
     "make, item",
     [
-        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state=True), "item 15"),
-        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state={}), "item 15"),
+        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state=True), None),
+        (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, steady_state={}), None),
         (lambda: pt.white.LinearWhiteNoiseEK1(steprule=CONSTANT, meascov_dt_scaled=True,
-                                              steady_state=True), "item 15"),
+                                              steady_state=True), None),
         (lambda: pt.white.SemiLinearWhiteNoiseEK0(steprule=CONSTANT, steady_state=True),
-         "item 15"),
-        (lambda: pt.latent.LinearLatentForceEK1(steprule=CONSTANT, steady_state={}), "item 15"),
+         "LINEAR"),
+        (lambda: pt.latent.LinearLatentForceEK1(steprule=CONSTANT, steady_state={}), None),
     ],
     ids=["steady", "steady-dict", "dt-scaled", "semilinear-ek0", "latent"],
 )
 def test_out_of_slice_options_raise(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+    """Steady-state mode initializes the linear solvers (an empty options
+    dict means on) with a finite stationary cache and a mean-only step, and
+    refuses a semilinear solver at initialize with the JAX package's
+    ValueError naming ``LINEAR``."""
+    solver = make()
+    if item is not None:
+        spruce = pt.examples.spruce_budworm_1d_discretized(dx=0.2, tmax=0.5, device=CPU)
+        with pytest.raises(ValueError, match=item):
+            solver.initialize(spruce)
+        return
+    heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=CPU)
+    state = solver.initialize(heat)
+    steady = solver.steady_cache
+    assert steady is not None and torch.isfinite(steady.cov_inf).all()
+    assert torch.equal(state.y.cov_sqrtm, steady.cov_inf)
+    sol = solver.solve(heat)
+    assert torch.isfinite(sol.mean).all() and sol.info["num_steps"] == 5
 
 
 def test_hook_without_blocks_is_accepted_and_solves():
