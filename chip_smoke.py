@@ -108,15 +108,38 @@ Phases (any failure exits non-zero; nothing is swallowed):
     the SDA seed's Cholesky body on D = 2e4, the polish and harvest on the
     leaf route, the stage seconds and the peak memory, the harvest against
     the plain two-QR path, 512 mean-only steps beside the 0.96 ms bound,
-    and 3 full banded steps beside 3 frozen ones.
+    and 3 full banded steps beside 3 frozen ones;
+22. (G) heat 2-D at N = 1e4, the JAX package's 2-D scale point
+    (``experiments/scale_demo.py:48-56``, f64): ``heat_2d_discretized`` on
+    100 x 100 points (``SquareExponential(0.15/dx)``, 5-point stencils,
+    nugget 1e-10; 396 boundary points, so m = 10396 and D = 2e4 at nu = 1),
+    the discretization's seconds (k-NN and FD), then initialize and 3 steps
+    of ``Constant(1e-3)`` on the banded leaf route (475 + 788 x 3 = 2839
+    ``leaf_lq``) against the plain two-QR path: init seconds, steps/s, peak
+    memory, one propagate and one update sweep by CUDA events, max|u| held
+    to the direction of ``(L u0)``; then ``kernels.Matern52`` on the 1e4
+    mesh points, one ``gram_radial`` launch, against its plain version
+    (1e-12) and timed beside its 0.239 ms bound;
+23. (H) advection-diffusion 3-D at 21^3 (``scale_demo.py:58-70``: velocity
+    (1, 0.5, 0.25), kappa 0.05, 7-point stencils; 2402 boundary points, m =
+    11663, D = 18522), as G: 472 + 762 x 3 = 2758 ``leaf_lq``, each path's
+    peak under 80 GB;
+24. (I) the 2-D problems below 4096 points on the block route: Fisher-KPP
+    on 48 x 48 (d = 2304, m = 2492; diffusion 0.01, growth 3) through
+    ``SemiLinearWhiteNoiseEK1``, nu = 2, 10 steps of 1e-3 (56 + 74 x 10 =
+    796 ``panel_lq``; max u grows toward 1), and the no-flux heat of
+    ``tests/test_neumann_nd.py`` on 24 x 24 through the n-D Neumann operator
+    (9-point stencils, ``SquareExponential(0.05/dx)``; m = 668, D = 1728:
+    15 + 19 x 10 = 205 panels; the spatial mean held to 20% while the spread
+    falls), each against the plain path.
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
 there, and the FD error covariance (the filter's measurement noise) dwarfs
 it, so the filter's initial derivative is that value shrunk about 1700-fold
 at 2048 points and max|u| rises by about ``dt`` times it a step, as in the
-JAX package (``tests/test_torch_fine_mesh.py``). There max|u| is held to
-the direction both point in.
+JAX package (``tests/test_torch_fine_mesh.py``). There, and in phases G
+and H, max|u| is held to the direction both point in.
 
 Every path's launch counts are set to 0 just before it and read just after;
 the kernels' ``launches`` are the sums over the paths. The last lines are
@@ -178,6 +201,13 @@ MLE_POINTS, MLE_TRIALS = 512, 20
 STEADY_DT, STEADY_STEPS = 1e-2, 512
 JAX_STEADY_SDA_ITERATIONS, JAX_STEADY_MAX_U = 14, 0.0405580823
 STEADY_UNSEEDED = {"seed": False, "tol": 1e-10, "max_iters": 3000}
+# the n-D problems: the 2-D heat at the JAX package's 2-D scale point
+# (100 x 100, N = 1e4) and the 3-D advection-diffusion at its largest
+# single-chip rung (21^3), 3 steps each at nu = 1; Fisher-KPP on 48 x 48
+# and the Neumann heat on 24 x 24 at nu = 2, 10 steps each
+HEAT2D_SIDE, ADVECTION_SIDE, ND_STEPS = 100, 21, 3
+FKPP_SIDE, FKPP_STEPS = 48, 10
+NEUMANN_SIDE, NEUMANN_STEPS, NEUMANN_DT = 24, 10, 0.05
 # the source of each kernel: the leaf QR is the panel kernel on the tall
 # layout, the LQ leaf the panel kernel on a leaf of a block
 SOURCES = {"panel_lq": "panel_lq", "leaf_lq": "panel_lq", "gram_radial": "gram_radial",
@@ -966,32 +996,39 @@ def phase_latent_large(pt, dev, launches, card_line):
         compare_runs(f"d={d} latent: {name} vs plain path", run, plain, d=d)
 
 
-def phase_large_n(pt, dev, launches, card_line):
-    """bench.py's large-N point in f64 through the two-QR pipeline on the
-    leaf route, banded and interleaved, against the plain two-QR path:
-    N = 1e4, nu = 1, so D = 2e4 and m = 10002. The init update LQ has
-    m + 2d = 30002 rows, each step's propagate D and update m + D; every
-    256-row block runs 64-row leaves."""
-    d, n = LARGE_N, LARGE_NU + 1
+def two_qr_point(pt, dev, launches, card_line, label, make_problem, num_steps,
+                 interleaved=False):
+    """A large-N point through the two-QR pipeline on the leaf route (nu =
+    1, ``Constant(DT)``): ``make_problem()`` discretized on the card, then
+    initialize and ``num_steps`` steps ``"banded"`` (and ``"interleaved"``)
+    against the plain two-QR path, each path's ``leaf_lq`` count read on its
+    own. With m measurement rows and D = 2d, the init update LQ has m + 2d
+    rows, each step's propagate D and update m + D; every 256-row block runs
+    64-row leaves. Prints the discretization seconds, each path's init
+    seconds, steps/s and peak memory, and one propagate and one update sweep
+    of each path by CUDA events. Returns ``(problem, m, D, leaf_lq count
+    of the banded path)``."""
+    n = LARGE_NU + 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    heat = dx_adapted_heat(pt, dev, d, LARGE_STEPS)
+    heat = make_problem()
     torch.cuda.synchronize()
+    d = heat.L.shape[0]
     m, D = d + heat.B.shape[0], n * d
-    print(f"N={d} heat discretized in {time.perf_counter() - t0:.3f} s (m = {m}, D = {D})",
-          flush=True)
-    per_run = leaf_launches(m + 2 * d, 256, 64) + LARGE_STEPS * (
+    print(f"{label} discretized in {time.perf_counter() - t0:.3f} s (k-NN and FD; d = {d}, "
+          f"m = {m}, D = {D})", flush=True)
+    per_run = leaf_launches(m + 2 * d, 256, 64) + num_steps * (
         leaf_launches(D, 256, 64) + leaf_launches(m + D, 256, 64))
-    # the interleaved run re-triangularizes its (D, D) initial factor once
-    retriangularize = leaf_launches(D, 256, 64)
+    banded, plain = ("householder two-QR banded (leaf route)", "plain two-QR torch.linalg.qr")
     configs = {  # each with its leaf_lq launches
-        "householder two-QR banded (leaf route)": (
-            dict(factorization="householder", fused=False, propagate_band="banded"), per_run),
-        "householder two-QR interleaved (leaf route)": (
+        banded: (dict(factorization="householder", fused=False, propagate_band="banded"),
+                 per_run)}
+    if interleaved:
+        # the interleaved run re-triangularizes its (D, D) initial factor once
+        configs["householder two-QR interleaved (leaf route)"] = (
             dict(factorization="householder", fused=False, propagate_band="interleaved"),
-            per_run + retriangularize),
-        "plain two-QR torch.linalg.qr": (dict(factorization=None, fused=False), 0),
-    }
+            per_run + leaf_launches(D, 256, 64))
+    configs[plain] = (dict(factorization=None, fused=False), 0)
     solvers = {name: pt.white.LinearWhiteNoiseEK1(
         steprule=pt.odetools.step.Constant(DT), num_derivatives=LARGE_NU,
         spatial_kernel=prior(pt), **kwargs) for name, (kwargs, _) in configs.items()}
@@ -1000,47 +1037,202 @@ def phase_large_n(pt, dev, launches, card_line):
         held = torch.cuda.memory_allocated(dev) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
         launches.reset()
-        runs[name] = run_solver(solver, heat, num_steps=LARGE_STEPS)
-        launches.read(f"N={d} {name}", {"leaf_lq": configs[name][1]})
+        runs[name] = run_solver(solver, heat, num_steps=num_steps)
+        launches.read(f"{label} {name}", {"leaf_lq": configs[name][1]})
         peaks[name] = (torch.cuda.max_memory_allocated(dev) / 2**30, held)
     for name, run in runs.items():
-        report_run(f"N={d} {name}", run, card_line, heat=heat)  # as at d = 2048
+        report_run(f"{label} {name}", run, card_line, heat=heat)  # as at d = 2048
         peak, held = peaks[name]
-        print(f"N={d} {name}: peak memory {peak:.2f} GiB, of which {held:.2f} GiB held before "
-              f"the run (the problem and the earlier runs) [{card_line}]", flush=True)
-    plain = runs["plain two-QR torch.linalg.qr"]
-    for name in list(configs)[:2]:
-        compare_runs(f"N={d}: {name} vs plain two-QR path", runs[name], plain)
+        print(f"{label} {name}: peak memory {peak:.2f} GiB, of which {held:.2f} GiB held "
+              f"before the run (the problem and the earlier runs) [{card_line}]", flush=True)
+        check(peak < 80.0, f"{label} {name}: peak memory above the card's 80 GB")
+    for name in list(configs)[:-1]:
+        compare_runs(f"{label}: {name} vs plain two-QR path", runs[name], runs[plain])
 
     # one propagate and one update sweep of each path, from the final states
     # (the interleaved propagate needs the triangular factor of its own run)
-    banded, interleaved = (solvers[name] for name in list(configs)[:2])
-    cache, hook = banded._cache, banded.factorization
+    cache, hook = solvers[banded]._cache, solvers[banded].factorization
     p, p_inv = pt.ops.iwp.nordsieck_scales_1d(LARGE_NU, DT, dtype=torch.float64, device=dev)
 
     def predicted(name):
         return pt.ops.iwp.apply_stack_matrix(
             cache.A1d, pt.ops.iwp.scale_stack(p_inv, runs[name]["state"].y.cov_sqrtm))
 
-    ACl, ACl_tri = predicted(list(configs)[0]), predicted(list(configs)[1])
+    ACl = predicted(banded)
     apply_H = pt.white._measurement_operator(cache, cache.L, p, n)
     Clp = hook.propagate.banded(ACl, cache.Ql)
     HClp = apply_H(Clp)
-    sweeps = {
-        "propagate, banded leaf route": lambda: hook.propagate.banded(ACl, cache.Ql),
-        "propagate, interleaved leaf route": lambda: interleaved.factorization.propagate
-        .interleaved(ACl_tri, cache.Ql, n),
+    sweeps = {"propagate, banded leaf route": lambda: hook.propagate.banded(ACl, cache.Ql)}
+    if interleaved:
+        name = list(configs)[1]
+        ACl_tri = predicted(name)
+        sweeps["propagate, interleaved leaf route"] = lambda: (
+            solvers[name].factorization.propagate.interleaved(ACl_tri, cache.Ql, n))
+    sweeps.update({
         "update, banded leaf route": lambda: hook.update_from_products.blocks_banded(
             HClp, Clp, cache.E_bc_sqrtm),
         "propagate, torch.linalg.qr": lambda: pt.ops.sqrt.propagate_cholesky_factor(
             ACl, cache.Ql),
         "update, torch.linalg.qr": lambda: pt.ops.sqrt.update_sqrt_from_products_blocks(
             HClp, Clp, cache.E_bc_sqrtm),
-    }
+    })
     times = {name: cuda_ms(fn, 1) for name, fn in sweeps.items()}
-    print(f"N={d} sweeps (ms, CUDA events, one call after one warm-up): "
+    print(f"{label} sweeps (ms, CUDA events, one call after one warm-up): "
           + ", ".join(f"{name} {ms:.1f}" for name, ms in times.items()) + f" [{card_line}]",
           flush=True)
+    return heat, m, D, per_run
+
+
+def phase_large_n(pt, dev, launches, card_line):
+    """bench.py's large-N point in f64 through the two-QR pipeline on the
+    leaf route, banded and interleaved, against the plain two-QR path:
+    N = 1e4, nu = 1, so D = 2e4 and m = 10002."""
+    two_qr_point(pt, dev, launches, card_line, f"N={LARGE_N}",
+                 lambda: dx_adapted_heat(pt, dev, LARGE_N, LARGE_STEPS), LARGE_STEPS,
+                 interleaved=True)
+
+
+def phase_heat_2d(pt, tgram, dev, launches, card_line):
+    """G. The JAX package's 2-D scale point (experiments/scale_demo.py:48-56)
+    in f64: heat on a 100 x 100 grid (N = 1e4, nu = 1, 396 boundary points:
+    m = 10396, D = 2e4), initialize and 3 steps on the banded leaf route
+    (475 + 788 x 3 = 2839 ``leaf_lq``) against the plain two-QR path; then
+    the Matern52 Gram of the 1e4 mesh points through the kernel dispatch,
+    one ``gram_radial`` launch, against its plain version and its bound."""
+    side = HEAT2D_SIDE
+    dx = 1.0 / (side - 1)
+
+    def problem():
+        return pt.pde.examples.heat_2d_discretized(
+            num_points=(side, side), kernel=pt.kernels.SquareExponential(input_scale=0.15 / dx),
+            stencil_size_interior=5, stencil_size_boundary=5, nugget_gram_matrix_fd=1e-10,
+            tmax=ND_STEPS * DT, device=dev)
+
+    heat, m, D, leaves = two_qr_point(pt, dev, launches, card_line,
+                                      f"heat 2-D {side}x{side}", problem, ND_STEPS)
+    check((m, D, leaves) == (10396, 20000, 2839), "heat 2-D: m, D or the leaf count")
+
+    points = heat.mesh_spatial.points
+    kernel = pt.kernels.Matern52(input_scale=0.15 / dx)
+    launches.reset()
+    got = kernel(points, points.T)
+    torch.cuda.synchronize()
+    launches.read(f"heat 2-D Gram {len(points)} x {len(points)}", {"gram_radial": 1})
+    want = tgram.gram_radial_reference(points, points, 0.15 / dx, 1.0, phi_name="matern52")
+    err = (got - want).abs().max().item()
+    del got, want
+    torch.cuda.empty_cache()
+    n = len(points)
+    ms = cuda_ms(lambda: kernel(points, points.T), 5)
+    plain_ms = cuda_ms(lambda: tgram.gram_radial_reference(
+        points, points, 0.15 / dx, 1.0, phi_name="matern52"), 5)
+    bound_ms, bound_by = gram_bound(n, n, 2, torch.float64)
+    torch.cuda.empty_cache()
+    print(f"heat 2-D Gram {n} x {n} Matern52 f64: max|dK| {err:.3e} (tol 1e-12); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"kernel at {bound_ms / ms:.2%} of it [{card_line}]", flush=True)
+    check(np.isfinite(err) and err <= 1e-12, "heat 2-D Gram: kernel disagrees")
+
+
+def phase_advection_3d(pt, dev, launches, card_line):
+    """H. The JAX package's largest 3-D single-chip rung
+    (experiments/scale_demo.py:58-70) in f64: advection-diffusion on 21^3
+    points (velocity (1, 0.5, 0.25), kappa 0.05, 7-point stencils; 2402
+    boundary points: m = 11663, D = 18522), initialize and 3 steps on the
+    banded leaf route (472 + 762 x 3 = 2758 ``leaf_lq``) against the plain
+    two-QR path, each under the card's 80 GB."""
+    side = ADVECTION_SIDE
+    dx = 1.0 / (side - 1)
+
+    def problem():
+        return pt.pde.examples.advection_diffusion_discretized(
+            dim=3, num_points=(side,) * 3,
+            kernel=pt.kernels.SquareExponential(input_scale=0.15 / dx),
+            stencil_size_interior=7, stencil_size_boundary=7, nugget_gram_matrix_fd=1e-10,
+            tmax=ND_STEPS * DT, velocity=[1.0, 0.5, 0.25], diffusion_rate=0.05, device=dev)
+
+    _, m, D, leaves = two_qr_point(pt, dev, launches, card_line,
+                                   f"advection 3-D {side}^3", problem, ND_STEPS)
+    check((m, D, leaves) == (11663, 18522, 2758), "advection 3-D: m, D or the leaf count")
+
+
+def block_panels(rows):
+    """Panel launches of one LQ sweep of ``rows`` rows on the block route."""
+    return -(-rows // 128)
+
+
+def phase_nd_small(pt, dev, launches, card_line):
+    """I. The 2-D problems below 4096 points on the block route (128-row
+    panels): Fisher-KPP on 48 x 48 (d = 2304, 188 boundary points, m = 2492)
+    through ``SemiLinearWhiteNoiseEK1`` (nu = 2, 10 steps of DT; init 7100
+    rows in 56 panels, steps 9404 rows in 74: 796 ``panel_lq``), and the
+    no-flux heat of tests/test_neumann_nd.py on 24 x 24 (9-point stencils,
+    ``SquareExponential(0.05/dx)``) through the n-D Neumann operator, nu =
+    2, 10 steps of 0.05; each against the plain path."""
+    side = FKPP_SIDE
+    dx = 1.0 / (side - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pde = pt.pde.examples.fisher_kpp_2d_discretized(
+        num_points=(side, side), kernel=pt.kernels.SquareExponential(input_scale=0.15 / dx),
+        stencil_size_interior=5, stencil_size_boundary=5, nugget_gram_matrix_fd=1e-10,
+        tmax=FKPP_STEPS * DT, diffusion_rate=0.01, growth_rate=3.0, device=dev)
+    torch.cuda.synchronize()
+    d = pde.L.shape[0]
+    m, D = d + pde.B.shape[0], (NU + 1) * d
+    expected = block_panels(m + 2 * d) + FKPP_STEPS * block_panels(m + D)
+    print(f"Fisher-KPP 2-D {side}x{side} discretized in {time.perf_counter() - t0:.3f} s "
+          f"(d = {d}, m = {m}, D = {D})", flush=True)
+    check((d, m, expected) == (2304, 2492, 796), "Fisher-KPP 2-D: d, m or the panel count")
+    runs = {}
+    for name, factorization in (("householder kernel", "householder"), ("plain", None)):
+        launches.reset()
+        runs[name] = run_solver(pt.white.SemiLinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(DT), num_derivatives=NU,
+            spatial_kernel=prior(pt), factorization=factorization), pde, num_steps=FKPP_STEPS)
+        launches.read(f"Fisher-KPP 2-D {name}",
+                      {"panel_lq": expected if factorization else 0})
+    for name, run in runs.items():
+        report_run(f"Fisher-KPP 2-D {name}", run, card_line, decays=False)
+        u0, u = run["y0_mean"][0].max().item(), run["state"].y.mean[0].max().item()
+        # the logistic growth (rate 3) outruns the diffusion (0.01), as in
+        # tests/test_fisher_kpp_2d.py, and stays below the carrying capacity
+        check(u0 < u <= 1.05, f"Fisher-KPP 2-D {name}: max u did not grow toward 1")
+    compare_runs("Fisher-KPP 2-D: kernel path vs plain path", runs["householder kernel"],
+                 runs["plain"])
+
+    side = NEUMANN_SIDE
+    dx = 1.0 / (side - 1)
+    heat = pt.pde.examples.heat_2d_discretized(
+        num_points=(side, side), tmax=NEUMANN_STEPS * NEUMANN_DT, bcond="neumann",
+        kernel=pt.kernels.SquareExponential(input_scale=0.05 / dx),
+        stencil_size_interior=9, stencil_size_boundary=9, device=dev)
+    d = heat.L.shape[0]
+    m, D = d + heat.B.shape[0], (NU + 1) * d
+    expected = block_panels(m + 2 * d) + NEUMANN_STEPS * block_panels(m + D)
+    print(f"Neumann heat 2-D {side}x{side}: d = {d}, m = {m} ({heat.B.shape[0]} Neumann "
+          f"rows), D = {D}: {expected} panels expected", flush=True)
+    runs = {}
+    for name, factorization in (("householder kernel", "householder"), ("plain", None)):
+        launches.reset()
+        runs[name] = run_solver(pt.white.LinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(NEUMANN_DT), num_derivatives=NU,
+            spatial_kernel=prior(pt), factorization=factorization), heat,
+            num_steps=NEUMANN_STEPS)
+        launches.read(f"Neumann heat 2-D {name}",
+                      {"panel_lq": expected if factorization else 0})
+    for name, run in runs.items():
+        report_run(f"Neumann heat 2-D {name}", run, card_line, decays=False)
+        u0, u = run["y0_mean"][0, :d], run["state"].y.mean[0, :d]
+        mean0, meanT = u0.mean().item(), u.mean().item()
+        print(f"Neumann heat 2-D {name}: spatial mean {mean0:.6f} -> {meanT:.6f}, spread "
+              f"{u0.std().item():.6f} -> {u.std().item():.6f}", flush=True)
+        # no-flux boundaries hold the mean (to tests/test_neumann_nd.py's
+        # 20%) while the profile flattens
+        check(abs(meanT - mean0) <= 0.2 * abs(mean0) and u.std() < u0.std(),
+              f"Neumann heat 2-D {name}: mean not held or spread not falling")
+    compare_runs("Neumann heat 2-D: kernel path vs plain path", runs["householder kernel"],
+                 runs["plain"])
 
 
 def timed_sync(fn):
@@ -1706,6 +1898,9 @@ def main():
     phase_mle(pt, tgram, dev, launches, card_line)
     phase_steady(pt, dev, launches, card_line)
     phase_steady_large(pt, dev, launches, card_line)
+    phase_heat_2d(pt, tgram, dev, launches, card_line)
+    phase_advection_3d(pt, dev, launches, card_line)
+    phase_nd_small(pt, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 

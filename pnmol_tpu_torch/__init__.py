@@ -57,6 +57,14 @@ Linear problems at constant steps also run in steady-state mode
 seeded by the doubling solver of ``ops.dare`` and polished through the
 step's own factorizations, and each step then updates the mean only.
 
+The n-D problems run through the same solvers: tensor grids in any
+dimension (``mesh.RectangularMesh.from_bbox_nd``, with outward boundary
+normals), operators from the diffop algebra, the n-D Neumann operator
+``discretize.fd_probabilistic_neumann``, and the recipes
+``heat_2d_discretized``, ``advection_diffusion_discretized`` and
+``fisher_kpp_2d_discretized`` of ``pde.examples``. The 2-D heat on 100 x 100
+points runs so on one GPU, with the N = 1e4 solver above.
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """

@@ -5,7 +5,8 @@ Kernel (RKHS) finite differences give a differentiation matrix ``L`` and a
 diagonal discretization-error factor ``E_sqrtm``. The per-stencil systems
 are solved in one ``torch.func.vmap`` batch; for stationary kernels only the
 distinct neighbour-offset patterns are solved (O(1) on a uniform grid).
-One-sided two-point stencils give the 1-D Neumann boundary operator.
+One-sided two-point stencils give the 1-D Neumann boundary operator, and
+stencils along each boundary point's outward normal the n-D one.
 Global collocation gives a dense ``L`` and a dense Cholesky ``E_sqrtm`` from
 three N x N Grams, of which the kernel's own reaches the CUDA Gram kernel.
 :func:`dx_adapted_input_scale` ties the kernel's input scale to the mesh.
@@ -15,7 +16,7 @@ from functools import partial
 
 import numpy as np
 import torch
-from torch.func import vmap
+from torch.func import grad, jacfwd, vmap
 
 from pnmol_tpu_torch import diffops, kernels
 
@@ -171,11 +172,52 @@ def fd_probabilistic_neumann_1d(mesh_spatial, kernel=None, stencil_size=2,
 
 def fd_probabilistic_neumann(mesh_spatial, kernel=None, stencil_size=3,
                              nugget_gram_matrix=0.0):
-    """The n-D directional Neumann operator: not ported yet."""
-    raise NotImplementedError(
-        "fd_probabilistic_neumann (Neumann boundaries beyond one spatial "
-        "dimension) is not ported yet (ROADMAP queue 1, item 16)"
-    )
+    """Kernel-FD outward normal derivative in any spatial dimension.
+
+    Per boundary point, the stencil system is solved for the directional
+    derivative along that point's outward normal
+    (``mesh_spatial.boundary_normals``); the normals are data, so all
+    boundary points batch in one ``torch.func.vmap``. Returns
+    ``(B (b, N), R_sqrtm (b, b))`` on the mesh's device, like the 1-D
+    variant.
+    """
+    if kernel is None:
+        kernel = kernels.SquareExponential(input_scale=1.0, output_scale=1.0)
+
+    pairwise = kernel.pairwise
+    grad_x = grad(lambda x, y: pairwise(x, y).squeeze(), argnums=0)
+    hess_xy = jacfwd(grad_x, argnums=1)
+
+    # the Matern52 removable singularity at zero distance (autodiff gives
+    # NaN there, as in fd_coefficients): the gradient of an even radial
+    # kernel is 0 at coincidence, and d_x d_y k is (5/3) s^2 r^2 I there, so
+    # n . H n = (5/3) s^2 r^2 for a unit normal
+    is_matern = isinstance(kernel, kernels.Matern52)
+    if is_matern:
+        hess_at_zero = 5.0 / 3.0 * kernel.output_scale**2 * kernel.input_scale**2
+
+    def one_point(x, neighbors, normal):
+        s = neighbors.shape[0]
+        gram = kernel(neighbors, neighbors.T) + nugget_gram_matrix * torch.eye(
+            s, dtype=x.dtype, device=x.device)
+        lk = vmap(lambda xj: torch.dot(normal, grad_x(x, xj)))(neighbors)
+        llk = normal @ hess_xy(x, x) @ normal
+        if is_matern:
+            lk = torch.nan_to_num(lk, nan=0.0)
+            llk = torch.where(torch.isnan(llk), hess_at_zero, llk)
+        chol = torch.linalg.cholesky(gram)
+        weights = torch.cholesky_solve(lk[:, None], chol).reshape(-1)
+        return weights, llk - weights @ lk
+
+    points_boundary, _, _ = mesh_spatial.boundary
+    neighbors, neighbor_idx = mesh_spatial.neighbours(point=points_boundary, num=stencil_size)
+    weights, uncertainties = vmap(one_point)(
+        points_boundary, neighbors, mesh_spatial.boundary_normals)
+
+    b = points_boundary.shape[0]
+    B = weights.new_zeros((b, len(mesh_spatial)))
+    B[torch.arange(b, device=B.device)[:, None], neighbor_idx] = weights
+    return B, torch.diag(uncertainties)
 
 
 def collocation_global(diffop, mesh_spatial, kernel=None, nugget_gram_matrix=0.0,

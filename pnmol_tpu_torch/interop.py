@@ -27,7 +27,9 @@ def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device,
     ``B`` (b, d), ``R_sqrtm`` (b, b), ``y0`` (d,) and the mesh points
     (N, dim). ``boundary`` is ``"dirichlet"`` or ``"neumann"``; with torch
     callables ``f(t, x)`` and ``df(t, x)`` the problem is semilinear (a
-    system when d is a multiple of N)."""
+    system when d is a multiple of N). The problem's bounding box is the
+    points': (dim, 2) for n-D points, so ``dimension`` is 2 as for the n-D
+    recipes, and ``[min, max]`` for 1-D points."""
     classes = {
         (False, "dirichlet"): problems.LinearEvolutionDirichlet,
         (False, "neumann"): problems.LinearEvolutionNeumann,
@@ -38,9 +40,10 @@ def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device,
     if (semilinear, boundary) not in classes:
         raise ValueError(f"Unknown boundary condition: {boundary!r}")
     extra = dict(f=f, df=df, df_diagonal=None) if semilinear else {}
+    bbox = mesh.read_bbox(points)
     pde = classes[semilinear, boundary](
-        diffop=None, diffop_scale=1.0, bbox=None, t0=t0, tmax=tmax, y0_fun=None,
-        **extra,
+        diffop=None, diffop_scale=1.0, bbox=bbox[0] if bbox.shape[0] == 1 else bbox,
+        t0=t0, tmax=tmax, y0_fun=None, **extra,
     )
     pde.mesh_spatial = mesh.RectangularMesh(np.asarray(points), device=device)
     pde.L = _tensor(L, device)

@@ -1,10 +1,12 @@
-"""1-D rectangular meshes with neighbour queries (counterpart of
-:mod:`pnmol_tpu.mesh`).
+"""Rectangular meshes in any spatial dimension with neighbour queries and
+boundary normals (counterpart of :mod:`pnmol_tpu.mesh`).
 
 Neighbour search runs once at problem setup, on the host, over the float64
 host copy of the points: an exact NumPy brute-force k-NN up to
 ``_TREE_CUTOVER`` points, the native KD-tree (:mod:`pnmol_tpu_torch.native`)
-above. Results become tensors on the mesh's device.
+above. Boundary classification and normals compare the host points with a
+float64 host copy of the bounding box. Results become tensors on the mesh's
+device.
 """
 
 from functools import cached_property
@@ -15,6 +17,10 @@ import torch
 from pnmol_tpu_torch import config, native
 
 _TREE_CUTOVER = 2048
+
+# cached classifications that depend on the order of the points
+_CACHED = ("boundary", "interior", "_boundary_mask_host", "boundary_projection_matrix",
+           "boundary_normals")
 
 
 def _knn_host(points: np.ndarray, queries: np.ndarray, k: int):
@@ -29,17 +35,24 @@ def _knn_host(points: np.ndarray, queries: np.ndarray, k: int):
     return np.take_along_axis(idx, order, axis=1)
 
 
+def _host_bbox(points_host):
+    return np.stack((points_host.min(axis=0), points_host.max(axis=0)), axis=-1)
+
+
 class RectangularMesh:
     """Tensor-product grid over an axis-aligned bounding box.
 
-    ``points`` (N, dim) live on ``device``; a float64 host copy serves the
-    setup geometry (neighbour search, boundary classification).
+    ``points`` (N, dim) live on ``device``; float64 host copies of the points
+    and of ``bbox`` (dim, 2) serve the setup geometry (neighbour search,
+    boundary classification, normals). Without ``bbox`` the points' own
+    bounding box is taken.
     """
 
-    def __init__(self, points, *, device):
+    def __init__(self, points, *, device, bbox=None):
         pts_np = np.asarray(points, dtype=np.float64)
         self._points_host = pts_np
-        self._bbox_host = np.stack((pts_np.min(axis=0), pts_np.max(axis=0)), axis=-1)
+        self._bbox_host = (_host_bbox(pts_np) if bbox is None
+                           else np.asarray(bbox, dtype=np.float64).reshape(-1, 2))
         self.device = torch.device(device)
         self.points = torch.tensor(pts_np, dtype=config.default_dtype(), device=self.device)
 
@@ -53,8 +66,54 @@ class RectangularMesh:
         grid = np.linspace(bbox[0], bbox[1], num=num, endpoint=True)
         return cls(grid.reshape(-1, 1), device=device)
 
+    @classmethod
+    def from_bbox_nd(cls, bbox, *, device, steps=None, nums=None):
+        """Tensor-product grid over an n-dimensional bounding box (dim, 2),
+        built in float64 on the host (``meshgrid`` in "ij" order)."""
+        bbox = np.asarray(bbox, dtype=np.float64).reshape(-1, 2)
+        dim = bbox.shape[0]
+        if (steps is None) == (nums is None):
+            raise ValueError("Provide exactly one of steps or nums.")
+        if steps is not None:
+            nums = tuple(int((bbox[d, 1] - bbox[d, 0]) / steps[d]) + 1 for d in range(dim))
+        axes = [np.linspace(bbox[d, 0], bbox[d, 1], num=nums[d], endpoint=True)
+                for d in range(dim)]
+        grids = np.meshgrid(*axes, indexing="ij")
+        return cls(np.stack([g.reshape(-1) for g in grids], axis=-1), device=device)
+
+    @classmethod
+    def from_bbox_2d(cls, bbox, *, device, steps=None, nums=None):
+        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
+
+    @classmethod
+    def from_bbox_3d(cls, bbox, *, device, steps=None, nums=None):
+        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
+
     def __len__(self):
         return self.points.shape[0]
+
+    def __getitem__(self, key):
+        return self.points[key]
+
+    @property
+    def shape(self):
+        return self.points.shape
+
+    @property
+    def dimension(self):
+        """Spatial dimension of the mesh."""
+        return self.points.shape[-1]
+
+    def sort(self):
+        """Reorder the points as [interior; boundary] in place, dropping the
+        cached classifications."""
+        _, _, interior_idx = self.interior
+        _, _, boundary_idx = self.boundary
+        perm = torch.cat((interior_idx, boundary_idx))
+        self.points = self.points[perm]
+        self._points_host = self._points_host[perm.cpu().numpy()]
+        for attr in _CACHED:
+            self.__dict__.pop(attr, None)
 
     @property
     def fill_distance(self):
@@ -110,3 +169,25 @@ class RectangularMesh:
         _, _, indices = self.boundary
         eye = torch.eye(len(self), dtype=self.points.dtype, device=self.device)
         return eye[indices, :]
+
+    @cached_property
+    def boundary_normals(self):
+        """Unit outward normals at the boundary points, (b, dim) on the
+        device: a face point takes its face's axis normal, an edge or corner
+        point (on several faces) the normalized sum of its faces' normals."""
+        bbox = self._bbox_host
+        pts = self._points_host[self._boundary_mask_host]
+        normals = (pts == bbox[None, :, 1]).astype(np.float64) - (
+            pts == bbox[None, :, 0]
+        ).astype(np.float64)
+        norms = np.linalg.norm(normals, axis=1, keepdims=True)
+        return torch.tensor(normals / np.maximum(norms, 1e-300),
+                            dtype=self.points.dtype, device=self.device)
+
+
+def read_bbox(points):
+    """Per-dimension (min, max) of a point cloud (N, dim): a float64 host
+    array (dim, 2), as the meshes keep their bounding box."""
+    if isinstance(points, torch.Tensor):
+        points = points.cpu().numpy()
+    return _host_bbox(np.asarray(points, dtype=np.float64))

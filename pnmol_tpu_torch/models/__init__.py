@@ -1,4 +1,4 @@
-"""PDE problem layer: base class, mixins and the 1-D problem recipes."""
+"""PDE problem layer: base class, mixins and the problem recipes."""
 
 from pnmol_tpu_torch.models import examples, mixins, problems
 

@@ -1,9 +1,13 @@
-"""Example PDE recipes: heat, SIR, Lotka-Volterra, spruce budworm
-(counterpart of :mod:`pnmol_tpu.models.examples`, 1-D, with the same
-default hyperparameters).
+"""Example PDE recipes: heat (1-D and 2-D), advection-diffusion (any
+dimension), SIR, Lotka-Volterra, spruce budworm and Fisher-KPP 2-D
+(counterpart of :mod:`pnmol_tpu.models.examples`, with the same default
+hyperparameters).
 
-Each ``*_discretized`` recipe takes ``device=``. The semilinear right-hand
-sides ``f(t, x)`` are closed forms in torch and their Jacobians ``df`` are
+Each ``*_discretized`` recipe takes ``device=``. The n-D recipes keep their
+bounding box as a nested list (dim, 2), so ``PDE.dimension`` is 2 and
+Neumann boundaries take the n-D operator
+(``discretize.fd_probabilistic_neumann``). The semilinear right-hand sides
+``f(t, x)`` are closed forms in torch and their Jacobians ``df`` are
 ``torch.func.jacfwd`` of them, as the JAX package takes ``jax.jacfwd``.
 """
 
@@ -89,6 +93,101 @@ def heat_1d_discretized(*, device, bbox=None, dx=0.05, stencil_size_interior=3,
         nugget_gram_matrix=nugget_gram_matrix_fd,
     )
     return heat
+
+
+def _bbox_nd(bbox, dim=2):
+    """The (dim, 2) box as a nested list; the unit box by default."""
+    if bbox is None:
+        return [[0.0, 1.0]] * dim
+    return [[float(lo), float(hi)] for lo, hi in bbox]
+
+
+def _sin_bump_nd(x):
+    """prod_i sin(pi x_i), as a column (N, 1)."""
+    return torch.prod(torch.sin(math.pi * x), dim=-1)[..., None]
+
+
+def heat_2d(*, bbox=None, t0=0.0, tmax=5.0, y0_fun=None, diffusion_rate=0.05,
+            bcond="dirichlet"):
+    """2-D heat equation with Dirichlet or Neumann boundaries."""
+    cls = _choose({"dirichlet": problems.LinearEvolutionDirichlet,
+                   "neumann": problems.LinearEvolutionNeumann}, bcond)
+    return cls(
+        diffop=diffops.laplace(),
+        diffop_scale=diffusion_rate,
+        bbox=_bbox_nd(bbox),
+        t0=t0,
+        tmax=tmax,
+        y0_fun=y0_fun if y0_fun is not None else _sin_bump_nd,
+    )
+
+
+def heat_2d_discretized(*, device, bbox=None, num_points=(12, 12), stencil_size_interior=9,
+                        stencil_size_boundary=5, t0=0.0, tmax=5.0, y0_fun=None,
+                        diffusion_rate=0.05, nugget_gram_matrix_fd=1e-12, kernel=None,
+                        bcond="dirichlet"):
+    """The 2-D heat equation on a ``num_points`` tensor grid on ``device``."""
+    heat = heat_2d(bbox=bbox, t0=t0, tmax=tmax, y0_fun=y0_fun,
+                   diffusion_rate=diffusion_rate, bcond=bcond)
+    heat.discretize(
+        mesh_spatial=mesh.RectangularMesh.from_bbox_2d(heat.bbox, nums=num_points,
+                                                       device=device),
+        kernel=kernel if kernel is not None else kernels.SquareExponential(),
+        stencil_size_interior=stencil_size_interior,
+        stencil_size_boundary=stencil_size_boundary,
+        nugget_gram_matrix=nugget_gram_matrix_fd,
+    )
+    return heat
+
+
+# ---------------------------------------------------------------------------
+# Advection-diffusion (linear, any dimension)
+# ---------------------------------------------------------------------------
+
+
+def advection_diffusion(*, dim=2, bbox=None, t0=0.0, tmax=1.0, y0_fun=None,
+                        diffusion_rate=0.05, velocity=None):
+    """Linear advection-diffusion ``u_t = kappa lap(u) - v . grad(u)`` with
+    Dirichlet boundaries, from the diffop algebra."""
+    if velocity is None:
+        velocity = [1.0] * dim
+    diffop = diffops.scalar_mult(diffusion_rate).compose_with(
+        diffops.laplace()
+    ) - diffops.directional_derivative(velocity)
+    return problems.LinearEvolutionDirichlet(
+        diffop=diffop,
+        diffop_scale=1.0,
+        bbox=_bbox_nd(bbox, dim),
+        t0=t0,
+        tmax=tmax,
+        y0_fun=y0_fun if y0_fun is not None else _sin_bump_nd,
+    )
+
+
+def advection_diffusion_discretized(*, device, dim=2, bbox=None, num_points=None,
+                                    stencil_size_interior=None, stencil_size_boundary=None,
+                                    t0=0.0, tmax=1.0, y0_fun=None, diffusion_rate=0.05,
+                                    velocity=None, nugget_gram_matrix_fd=1e-12, kernel=None):
+    """Advection-diffusion in ``dim`` dimensions on a tensor grid on
+    ``device``; the stencil sizes default to the tensor grid's neighbour
+    shells."""
+    if num_points is None:
+        num_points = (12,) * dim
+    if stencil_size_interior is None:
+        stencil_size_interior = {1: 3, 2: 9, 3: 11}.get(dim, 2 * dim + 1)
+    if stencil_size_boundary is None:
+        stencil_size_boundary = {1: 3, 2: 5, 3: 7}.get(dim, dim + 2)
+    pde = advection_diffusion(dim=dim, bbox=bbox, t0=t0, tmax=tmax, y0_fun=y0_fun,
+                              diffusion_rate=diffusion_rate, velocity=velocity)
+    pde.discretize(
+        mesh_spatial=mesh.RectangularMesh.from_bbox_nd(pde.bbox, nums=num_points,
+                                                       device=device),
+        kernel=kernel if kernel is not None else kernels.SquareExponential(),
+        stencil_size_interior=stencil_size_interior,
+        stencil_size_boundary=stencil_size_boundary,
+        nugget_gram_matrix=nugget_gram_matrix_fd,
+    )
+    return pde
 
 
 # ---------------------------------------------------------------------------
@@ -243,3 +342,47 @@ def spruce_budworm_1d_discretized(*, device, bbox=None, t0=0.0, tmax=10.0,
         nugget_gram_matrix=nugget_gram_matrix_fd,
     )
     return spruce
+
+
+def fisher_kpp_2d(*, bbox=None, t0=0.0, tmax=5.0, y0_fun=None, diffusion_rate=0.05,
+                  growth_rate=1.0, bcond="dirichlet"):
+    """2-D Fisher-KPP: the logistic growth of :func:`spruce_budworm_1d` with
+    2-D diffusion."""
+    if y0_fun is None:
+
+        def y0_fun(x):
+            return 0.5 * _sin_bump_nd(x)
+
+    def f(_, x):
+        return growth_rate * x * (1.0 - x)
+
+    cls = _choose({"dirichlet": problems.SemiLinearEvolutionDirichlet,
+                   "neumann": problems.SemiLinearEvolutionNeumann}, bcond)
+    return cls(
+        t0=t0,
+        tmax=tmax,
+        y0_fun=y0_fun,
+        bbox=_bbox_nd(bbox),
+        diffop=diffops.laplace(),
+        diffop_scale=diffusion_rate,
+        f=f,
+        df=jacfwd(f, argnums=1),
+        df_diagonal=None,
+    )
+
+
+def fisher_kpp_2d_discretized(*, device, bbox=None, num_points=(12, 12),
+                              stencil_size_interior=9, stencil_size_boundary=5, t0=0.0,
+                              tmax=5.0, y0_fun=None, diffusion_rate=0.05, growth_rate=1.0,
+                              nugget_gram_matrix_fd=1e-12, kernel=None, bcond="dirichlet"):
+    pde = fisher_kpp_2d(bbox=bbox, t0=t0, tmax=tmax, y0_fun=y0_fun,
+                        diffusion_rate=diffusion_rate, growth_rate=growth_rate, bcond=bcond)
+    pde.discretize(
+        mesh_spatial=mesh.RectangularMesh.from_bbox_2d(pde.bbox, nums=num_points,
+                                                       device=device),
+        kernel=kernel if kernel is not None else kernels.SquareExponential(),
+        stencil_size_interior=stencil_size_interior,
+        stencil_size_boundary=stencil_size_boundary,
+        nugget_gram_matrix=nugget_gram_matrix_fd,
+    )
+    return pde

@@ -442,3 +442,66 @@ def test_sda_on_the_card_matches_the_cpu(cuda, solver):
     rel = ((gpu.sigma.cpu() - cpu.sigma).abs().max() / cpu.sigma.abs().max()).item()
     assert rel <= 1e-10
     assert pt.ops.dare.dare_residual(gpu.sigma, *gpu_inputs).item() < 1e-10
+
+
+ND_RECIPES = {  # dx-adapted kernels: well-conditioned stencil Grams
+    "heat-2d-neumann": lambda dev: pt.examples.heat_2d_discretized(
+        num_points=(12, 12), bcond="neumann", stencil_size_interior=9,
+        stencil_size_boundary=9, kernel=pt.kernels.SquareExponential(input_scale=0.5 * 11),
+        tmax=0.5, device=dev),
+    "advection-3d": lambda dev: pt.examples.advection_diffusion_discretized(
+        dim=3, num_points=(6, 6, 6), stencil_size_interior=7, stencil_size_boundary=7,
+        kernel=pt.kernels.SquareExponential(input_scale=0.5 * 5), velocity=[1.0, 0.5, 0.25],
+        device=dev),
+    "fisher-kpp-neumann": lambda dev: pt.examples.fisher_kpp_2d_discretized(
+        num_points=(8, 8), bcond="neumann",
+        kernel=pt.kernels.SquareExponential(input_scale=0.5 * 7), device=dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ND_RECIPES))
+def test_nd_recipes_on_the_card_match_the_cpu(cuda, name):
+    """The n-D discretizations (k-NN, FD, the n-D Neumann operator) on CUDA
+    tensors against the same recipe on the CPU: each product within 1e-10
+    of its largest entry."""
+    gpu, cpu = ND_RECIPES[name](cuda), ND_RECIPES[name]("cpu")
+    assert gpu.dimension == 2
+    for attr in ("L", "E_sqrtm", "B", "R_sqrtm", "y0"):
+        got, want = getattr(gpu, attr), getattr(cpu, attr)
+        assert got.device == cuda and got.shape == want.shape
+        assert (got.cpu() - want).abs().max().item() <= 1e-10 * want.abs().max().item()
+
+
+def test_nd_neumann_heat_through_the_panel_kernel_matches_the_plain_path(cuda):
+    """The 12 x 12 no-flux heat (d = 144, m = 188, nu = 2: init 476 rows, 4
+    panels; steps 620 rows, 5 panels) through "householder" and the plain
+    path: 4 + 5 x 10 launches, means and Grams within 1e-10."""
+    heat = ND_RECIPES["heat-2d-neumann"](cuda)
+    sols = {}
+    for factorization in ("householder", None):
+        before = tq.panel_lq.launches
+        sols[factorization] = pt.white.LinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(0.05), factorization=factorization).solve(heat)
+        torch.cuda.synchronize()
+        assert tq.panel_lq.launches - before == (54 if factorization else 0)
+    (a, b) = sols["householder"], sols[None]
+    assert torch.isfinite(a.mean).all() and a.mean.device == cuda
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
+
+    assert rel(a.mean, b.mean) <= 1e-10
+    assert rel(a.cov_sqrtm[-1] @ a.cov_sqrtm[-1].T, b.cov_sqrtm[-1] @ b.cov_sqrtm[-1].T) <= 1e-10
+
+
+def test_radial_kernel_dispatches_2d_and_3d_grams_to_the_kernel(cuda):
+    for dim in (2, 3):
+        X = torch.rand((600, dim), dtype=torch.float64, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(dim))
+        k = pt.kernels.Matern52(input_scale=4.0)
+        before = tgram.gram_radial.launches
+        gram = k(X, X.T)
+        assert tgram.gram_radial.launches == before + 1
+        torch.testing.assert_close(
+            gram, tgram.gram_radial_reference(X, X, 4.0, 1.0, phi_name="matern52"),
+            rtol=0, atol=1e-12)

@@ -125,8 +125,11 @@ def test_gradient_divergence_laplace():
 def test_out_of_slice_problem_options_raise():
     heat = pt.pde.examples.heat_1d(tmax=1.0)
     mesh = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], step=0.2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pt.discretize.fd_probabilistic_neumann(mesh)
+    # the n-D Neumann operator is ported: with two-point stencils on a 1-D
+    # mesh it is the 1-D operator, bit for bit
+    for got, want in zip(pt.discretize.fd_probabilistic_neumann(mesh, stencil_size=2),
+                         pt.discretize.fd_probabilistic_neumann_1d(mesh)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="Unknown discretization scheme"):
         heat.discretize(mesh_spatial=mesh, kernel=pt.kernels.SquareExponential(),
                         stencil_size_interior=3, stencil_size_boundary=3,

@@ -38,12 +38,13 @@ def test_no_jax_imports_in_source(path):
 
 
 # the modules of the adaptive, semilinear and latent-force slice, of the
-# large-N slice, of the MOL baseline and calibration slice, and of
-# steady-state mode
+# large-N slice, of the MOL baseline and calibration slice, of
+# steady-state mode, and of the n-D problems
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
-                 "odetools.reference_solver", "ops.kalman", "solvers.smoothing", "ops.dare")
+                 "odetools.reference_solver", "ops.kalman", "solvers.smoothing", "ops.dare",
+                 "diffops", "mesh", "interop")
 
 
 def test_the_slice_modules_are_checked():

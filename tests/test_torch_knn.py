@@ -43,6 +43,30 @@ def test_knn_matches_jax_on_a_uniform_grid():
     assert np.all(idx[:, 0] == np.arange(GRID))
 
 
+def _grid(side, dim):
+    axes = [np.linspace(0.0, 1.0, side)] * dim
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, dim)
+
+
+@pytest.mark.parametrize("side,dim,k", [(48, 2, 5), (48, 2, 9), (14, 3, 7)])
+def test_knn_matches_jax_on_nd_grids(side, dim, k):
+    """2-D and 3-D tensor grids above the cutover (2304 and 2744 points):
+    equal indices, order included. A grid point's neighbours tie in whole
+    shells, and another tie-break would change the FD operator."""
+    points = _grid(side, dim)
+    assert points.shape[0] > pt.mesh._TREE_CUTOVER
+    idx, dist = native.knn(points, points, k)
+    jidx, jdist = jnative.knn(points, points, k)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_array_equal(dist, jdist)
+    assert np.all(idx[:, 0] == np.arange(points.shape[0]))
+    tm = pt.mesh.RectangularMesh(points, device="cpu")
+    jm = jmesh.RectangularMesh(points)
+    _, tnb = tm.neighbours(point=tm.boundary[0], num=k)
+    _, jnb = jm.neighbours(point=jm.boundary[0], num=k)
+    np.testing.assert_array_equal(tnb.numpy(), np.asarray(jnb))
+
+
 def test_mesh_neighbours_above_the_cutover_match_jax():
     tm = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=GRID, device="cpu")
     jm = jmesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=GRID)

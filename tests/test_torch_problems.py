@@ -172,9 +172,21 @@ def test_duplicate_gram_matches_jax():
 
 
 def test_out_of_slice_problem_parts_raise():
+    # the n-D Neumann operator is ported: on a 1-D mesh it is the outward
+    # derivative at both ends, as in the JAX package (to 1e-11 of its
+    # largest weight)
+    from pnmol_tpu import discretize as jdiscretize
+    from pnmol_tpu import mesh as jmesh
+
     mesh = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], step=0.25, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pt.discretize.fd_probabilistic_neumann(mesh)
+    B, R = pt.discretize.fd_probabilistic_neumann(mesh)
+    jB, jR = jdiscretize.fd_probabilistic_neumann(
+        jmesh.RectangularMesh.from_bbox_1d([0.0, 1.0], step=0.25))
+    assert B.shape == (2, 5) and R.shape == (2, 2)
+    np.testing.assert_allclose(B.numpy(), np.asarray(jB), rtol=0,
+                               atol=1e-11 * np.abs(np.asarray(jB)).max())
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), rtol=0,
+                               atol=1e-11 * np.abs(np.asarray(jR)).max())
     # the method-of-lines conversion is ported: it needs a discretized problem
     assert pt.examples.heat_1d_discretized(dx=0.25, device=CPU).to_ivp().y0.shape == (3,)
     with pytest.raises(AttributeError, match="prior discretization"):
