@@ -131,7 +131,30 @@ Phases (any failure exits non-zero; nothing is swallowed):
     ``tests/test_neumann_nd.py`` on 24 x 24 through the n-D Neumann operator
     (9-point stencils, ``SquareExponential(0.05/dx)``; m = 668, D = 1728:
     15 + 19 x 10 = 205 panels; the spatial mean held to 20% while the spread
-    falls), each against the plain path.
+    falls), each against the plain path;
+25. (J) the space-sharded tier on ONE NCCL rank (NCCL takes one rank per
+    GPU), spawned by ``parallel.distributed.spawn_ranks``, at phase 15's
+    N = 1e4 point (nu = 1): ``sharded_white_initialize`` and 3 steps of
+    ``make_space_sharded_constant_solve(two_qr=True)`` on the cache placed
+    by ``shard_cache(shard_operands=True)``, the counted collectives equal
+    to ``comm_model``'s at P = 1, init seconds, steps/s and peak memory,
+    against the plain single-GPU two-QR run of the same problem (1e-4);
+26. (K) TWO gloo ranks sharing the card, every collective staged through
+    host memory (the bytes printed), at the bench width: the distributed
+    init and 20 fused distributed-QR steps, the same two-QR (collectives
+    equal to the comm model at P = 2), the latent init and 2 steps, the
+    adaptive solve to ADAPTIVE_TMAX (20 steps of 41 attempts, as phase 11),
+    each against its single-GPU run (phases 5, 9 and 11; the adaptive one
+    also against phase 11's solver with the distributed factorization on a
+    one-rank mesh); then ``sharded_collocation_global`` at N = 1e4
+    (``SquareExponential(1/dx)``, figure 2's nuggets), each rank's 5000 x
+    1e4 Gram block on the Gram kernel (2 ``gram_radial``, counted in the
+    ranks), against the single-GPU ``collocation_global`` within 10x the
+    rounding floor of its distance-trick Grams;
+27. (L) figure 3's dt sweep: SIR at dx = 1/64 (d = 195, nu = 1) through
+    ``SemiLinearWhiteNoiseEK1``, ``ensembles.dt_sweep_final_states`` over
+    the 18 dts 2^(2 .. -6.5) against 18 sequential ``simulate_final_state``
+    runs (1e-10), both times printed.
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -142,7 +165,8 @@ JAX package (``tests/test_torch_fine_mesh.py``). There, and in phases G
 and H, max|u| is held to the direction both point in.
 
 Every path's launch counts are set to 0 just before it and read just after;
-the kernels' ``launches`` are the sums over the paths. The last lines are
+the kernels' ``launches`` are the sums over the paths, with the launches
+that spawned ranks count in their own processes and report. The last lines are
 the kernels' JSON record, the card, and ``{"ok": true, "device": {...}}``.
 Imports neither JAX nor pnmol_tpu.
 """
@@ -931,6 +955,7 @@ def phase_adaptive(pt, dev, launches, card_line):
     report_run(f"N={N_POINTS} adaptive, householder kernel", hh, card_line)
     report_run(f"N={N_POINTS} adaptive, plain torch.linalg.qr", plain, card_line)
     compare_runs("adaptive: kernel path vs plain path", hh, plain)
+    return plain
 
 
 def phase_semilinear_latent(pt, dev, launches, card_line):
@@ -1833,6 +1858,477 @@ def phase_steady_large(pt, dev, launches, card_line):
     check(rel_max(frozen.y.mean, mean_full) <= 1e-3, f"{name}: frozen steps leave the full steps")
 
 
+# the space-sharded tier: J, one NCCL rank at the N = 1e4 point (nu = 1,
+# Constant(DT)), 3 two-QR steps; K, two gloo ranks sharing the card at the
+# bench width (N = 512, nu = 2), with global collocation at N = 1e4 (figure
+# 2's nuggets, SquareExponential(1/dx): the figure's own MLE scale, 6.16,
+# leaves neither K nor E a Cholesky factor from 1024 points on); L, figure
+# 3's dt sweep of SIR at dx = 1/64 (d = 195, nu = 1, 18 dts, tmax 6)
+SHARDED_STEPS, SHARDED_LATENT_STEPS, COLLOCATION_N = 3, 2, 10000
+FIG3_DX, FIG3_TMAX = 1.0 / 64, 6.0
+FIG3_DTS = 2.0 ** np.arange(2, -7, step=-0.5)
+# stated before the first run on the card: CholeskyQR3 panels against
+# Householder QRs drift by eps*cond per step (the JAX package's own sharded
+# trajectories: ~4e-6 absolute after 5 f64 steps, tests/test_parallel.py)
+SHARDED_RTOL = 1e-4
+# stated before K's run against the explicit-difference reference: the
+# distance trick's first-order error of a Gram entry, 3 eps s^2 R^2 / 2 with
+# s = 9999 and R^2 = |x - c|^2 + |y - c|^2 <= 0.625 on a rank's rows, is
+# 2.1e-8; the actions are held to 50 times that
+COLLOCATION_RTOL = 1e-6
+
+
+def rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def full_white_cache(pt, heat, chol_gram, mesh, nu):
+    """The white step cache of the distributed init's ``chol_gram`` (rows
+    gathered), for ``shard_cache`` to place."""
+    from pnmol_tpu_torch.parallel import meshes
+
+    d = heat.L.shape[0]
+    trans = pt.ops.iwp.IntegratedWienerTransition(
+        num_derivatives=nu, wiener_process_dimension=d,
+        wp_diffusion_sqrtm=mesh.gather_rows(chol_gram, meshes.block_sizes(d, mesh.shape["space"])))
+    return pt.white.WhiteSolverCache(
+        A1d=trans.preconditioned_discretize_1d[0], Ql=trans.process_noise_factor, L=heat.L,
+        B=heat.B, E_bc_sqrtm=torch.block_diag(heat.E_sqrtm, heat.R_sqrtm))
+
+
+def model_totals(parts, times=1):
+    totals = {}
+    for part in parts:
+        for coll in part.collectives:
+            totals[coll.kind] = totals.get(coll.kind, 0) + coll.total_payload * times
+    return totals
+
+
+def counted_against_model(label, mesh, parts, times=1):
+    """The mesh's schedule counts since its last reset against the comm
+    model's; returns the line's text."""
+    got, model = mesh.totals("schedule"), model_totals(parts, times)
+    calls = mesh.calls("schedule")
+    check(got == model, f"{label}: counted collectives {got} != comm model {model}")
+    return (f"{label}: collectives (kind: calls, elements) "
+            + ", ".join(f"{k}: {calls[k]}, {got[k]}" for k in sorted(got))
+            + f" = comm model; layout {mesh.totals('layout')}, staged "
+            f"{mesh.staged_bytes / 2**20:.1f} MiB")
+
+
+def gathered_cols(mesh, x, n):
+    from pnmol_tpu_torch.parallel import meshes
+
+    return mesh.gather_rows(x.T.contiguous(), meshes.block_sizes(n, mesh.shape["space"])).T
+
+
+def rank_wrappers():
+    """The four kernel wrappers in a spawned rank, their counts set to 0:
+    a rank has its own counters, which it returns to the parent."""
+    from pnmol_tpu_torch.ops import gram as tgram
+    from pnmol_tpu_torch.ops import qr_householder as tq
+
+    wrappers = {"panel_lq": tq.panel_lq, "leaf_lq": tq.leaf_lq,
+                "gram_radial": tgram.gram_radial, "leaf_qr": tq.leaf_qr}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    return wrappers
+
+
+def add_rank_launches(label, launches, ranks, expected):
+    """The spawned ranks' kernel launches, summed, against ``expected``, and
+    added to the run's totals; returns the sum."""
+    counts = {}
+    for got in ranks:
+        for name, count in got["launches"].items():
+            counts[name] = counts.get(name, 0) + count
+    print(f"{label}: the ranks' launches {counts} (expected {expected})", flush=True)
+    check(counts == expected, f"{label}: the ranks' kernel launches")
+    for name, count in counts.items():
+        launches.totals[name] += count
+    return counts
+
+
+def sharded_large_rank(payload, device):
+    """J, on its one NCCL rank: the distributed init and 3 two-QR steps at
+    the N = 1e4 point, then the plain single-GPU two-QR run of the same
+    problem in the same process; returns the lines to print and the
+    comparison."""
+    import pnmol_tpu_torch as pt
+    from pnmol_tpu_torch.parallel import distributed, sharded_filter, sharded_init
+    from pnmol_tpu_torch.utils import comm_model
+
+    torch.set_num_threads(4)
+    dev = torch.device(device)
+    mesh = distributed.global_mesh(batch=1)
+    P = mesh.shape["space"]
+    wrappers = rank_wrappers()
+    heat = dx_adapted_heat(pt, dev, LARGE_N, SHARDED_STEPS)
+    d, n_bc = heat.L.shape[0], heat.B.shape[0]
+    lines = [f"J: backend {mesh.backend}, {P} rank, {dev}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    mean0, C0, chol_gram = sharded_init.sharded_white_initialize(
+        heat, mesh, num_derivatives=LARGE_NU, spatial_kernel=prior(pt))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lines.append(counted_against_model("J distributed init", mesh, comm_model.distributed_init_cost(
+        d, LARGE_NU, n_bc, P, sharded_r=False)))
+    cache = sharded_filter.shard_cache(full_white_cache(pt, heat, chol_gram, mesh, LARGE_NU),
+                                       mesh, distributed_qr=True, shard_operands=True)
+    del chol_gram
+    solve = sharded_filter.make_space_sharded_constant_solve(
+        cache=cache, num_derivatives=LARGE_NU, mesh=mesh, dt=DT, num_steps=SHARDED_STEPS,
+        distributed_qr=True, two_qr=True)
+    mesh.reset_counts()
+    t1 = time.perf_counter()
+    mean, cov, diff = solve(mean0, C0, float(heat.t0))
+    torch.cuda.synchronize()
+    steps_per_s = SHARDED_STEPS / (time.perf_counter() - t1)
+    lines.append(counted_against_model(
+        f"J {SHARDED_STEPS} two-QR steps", mesh,
+        comm_model.two_qr_step_cost(d, LARGE_NU, n_bc, P), SHARDED_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    model = comm_model.step_time_model(comm_model.two_qr_step_cost(d, LARGE_NU, n_bc, P), P)
+    lines.append(f"J sharded two-QR (N={LARGE_N}, D={(LARGE_NU + 1) * d}, m={d + n_bc}): init "
+                 f"{init_s:.3f} s, {steps_per_s:.3f} steps/s over {SHARDED_STEPS} steps, peak "
+                 f"{peak:.2f} GiB; the comm model's FP64-peak bound of a step "
+                 f"{model['t_step_s']:.3f} s ({model['flops_per_device']:.3e} FLOP)")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()), "J: NaN or inf")
+    counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    cov = gathered_cols(mesh, cov, cov.shape[0])
+    del cache, C0, mean0
+    torch.cuda.empty_cache()
+
+    solver = pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(DT), num_derivatives=LARGE_NU,
+        spatial_kernel=prior(pt), factorization=None, fused=False)
+    t2 = time.perf_counter()
+    final, info = solver.simulate_final_state(heat)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t2
+    check(info["num_steps"] == SHARDED_STEPS, f"J plain: {info['num_steps']} steps")
+    C = final.y.cov_sqrtm
+    out = dict(mean=rel(mean, final.y.mean), gram=rel(cov @ cov.T, C @ C.T),
+               diff=abs(diff.item() / final.diffusion_squared_local.item() - 1))
+    lines.append(f"J plain two-QR torch.linalg.qr, init + {SHARDED_STEPS} steps in "
+                 f"{plain_s:.3f} s; sharded vs plain: mean rel {out['mean']:.3e}, Gram rel "
+                 f"{out['gram']:.3e}, diffusion rel {out['diff']:.3e}")
+    return dict(lines=lines, launches=counts, **out)
+
+
+def _heat_run(mean, cov, diff, mesh):
+    return dict(mean=mean.cpu(), cov=gathered_cols(mesh, cov, cov.shape[0]).cpu(),
+                diff=float(diff))
+
+
+def sharded_gloo_rank(payload, device):
+    """K, on each of two gloo ranks sharing the card: the distributed init
+    and 20 fused distributed-QR steps at the bench width, the same with the
+    two-QR split, the latent init and 2 steps, the adaptive solve, and
+    global collocation at N = 1e4 with each rank's Gram block through the
+    Gram kernel; returns the lines to print, the runs' final states, and
+    the rank's kernel launches."""
+    import pnmol_tpu_torch as pt
+    from pnmol_tpu_torch.parallel import distributed, meshes, sharded_filter, sharded_init, \
+        sharded_linalg
+    from pnmol_tpu_torch.utils import comm_model
+
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    mesh = distributed.global_mesh(batch=1)
+    P = mesh.shape["space"]
+    wrappers = rank_wrappers()
+    heat = full_width_heat(pt, dev)
+    d, n_bc = heat.L.shape[0], heat.B.shape[0]
+    lines, runs = [f"K: backend {mesh.backend}, rank {mesh.rank} of {P}, {dev}"], {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    mesh.reset_counts()
+    (mean0, C0, chol_gram), init_s = timed(lambda: sharded_init.sharded_white_initialize(
+        heat, mesh, num_derivatives=NU, spatial_kernel=prior(pt)))
+    lines.append(counted_against_model("K distributed init", mesh,
+                                       comm_model.distributed_init_cost(d, NU, n_bc, P,
+                                                                        sharded_r=False)))
+    lines.append(f"K distributed init: {init_s:.3f} s")
+    fused = sharded_init.sharded_white_cache(heat, chol_gram, mesh, num_derivatives=NU)
+    for label, cache, two_qr in (
+        ("fused distributed-QR", fused, False),
+        ("two-QR", sharded_filter.shard_cache(full_white_cache(pt, heat, chol_gram, mesh, NU),
+                                              mesh, distributed_qr=True, shard_operands=True),
+         True),
+    ):
+        solve = sharded_filter.make_space_sharded_constant_solve(
+            cache=cache, num_derivatives=NU, mesh=mesh, dt=DT, num_steps=NUM_STEPS,
+            distributed_qr=True, two_qr=two_qr)
+        mesh.reset_counts()
+        (mean, cov, diff), seconds = timed(lambda: solve(mean0, C0, float(heat.t0)))
+        line = f"K {label}: {NUM_STEPS / seconds:.2f} steps/s over {NUM_STEPS} steps"
+        if two_qr:
+            lines.append(counted_against_model(f"K {label} {NUM_STEPS} steps", mesh,
+                                               comm_model.two_qr_step_cost(d, NU, n_bc, P),
+                                               NUM_STEPS))
+        else:
+            line += (f"; collectives {mesh.calls('schedule')} calls, staged "
+                     f"{mesh.staged_bytes / 2**20:.1f} MiB")
+        lines.append(line)
+        runs[label] = _heat_run(mean, cov, diff, mesh)
+
+    rule = pt.odetools.step.Adaptive()
+    heat_adaptive = full_width_heat(pt, dev, tmax=ADAPTIVE_TMAX)
+    solve = sharded_filter.make_space_sharded_adaptive_solve(
+        cache=fused, num_derivatives=NU, mesh=mesh, steprule=rule, t0=0.0, tmax=ADAPTIVE_TMAX)
+    mesh.reset_counts()
+    (t, mean, cov, diff, n_steps, n_attempts), seconds = timed(
+        lambda: solve(mean0, C0, float(rule.first_dt(heat_adaptive))))
+    lines.append(f"K adaptive to t = {t:.6g}: {n_steps} steps of {n_attempts} attempts in "
+                 f"{seconds:.3f} s; staged {mesh.staged_bytes / 2**20:.1f} MiB")
+    runs["adaptive"] = dict(_heat_run(mean, cov, diff, mesh), t=t, n_steps=n_steps,
+                            n_attempts=n_attempts)
+    del fused, C0
+
+    mesh.reset_counts()
+    (mean0, C0, chol_gram), init_s = timed(lambda: sharded_init.sharded_latent_initialize(
+        heat, mesh, num_derivatives=NU, spatial_kernel=prior(pt)))
+    cache = sharded_init.sharded_latent_cache(heat, chol_gram, mesh, num_derivatives=NU)
+    solve = sharded_filter.make_space_sharded_constant_solve(
+        cache=cache, num_derivatives=NU, mesh=mesh, dt=DT, num_steps=SHARDED_LATENT_STEPS,
+        latent=True)
+    (mean, cov, diff), seconds = timed(lambda: solve(mean0, C0, float(heat.t0)))
+    lines.append(f"K latent: init {init_s:.3f} s, {SHARDED_LATENT_STEPS / seconds:.2f} steps/s "
+                 f"over {SHARDED_LATENT_STEPS} steps; staged {mesh.staged_bytes / 2**20:.1f} MiB")
+    runs["latent"] = _heat_run(mean, cov, diff, mesh)
+    del cache, C0, chol_gram
+
+    # global collocation at N = 1e4: each rank's 5000 x 1e4 Gram block runs
+    # the Gram kernel; D's action on a smooth function and E E^T's on a
+    # seeded vector come back for the comparison
+    grid = pt.mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=COLLOCATION_N, device=dev)
+    kernel = pt.kernels.SquareExponential(input_scale=float(COLLOCATION_N - 1))
+    mesh.reset_counts()
+    before = wrappers["gram_radial"].launches
+    (D, E), seconds = timed(lambda: sharded_linalg.sharded_collocation_global(
+        pt.diffops.laplace(), grid, mesh, kernel=kernel, nugget_gram_matrix=1e-12,
+        nugget_cholesky_E=1e-10, symmetrize_cholesky_E=True))
+    check(wrappers["gram_radial"].launches == before + 1, "K collocation: the rank's Gram block "
+          "did not run the Gram kernel")
+    start, stop = mesh.bounds(COLLOCATION_N)
+    f = torch.sin(3.0 * grid.points[:, 0])
+    v = torch.tensor(np.random.default_rng(0).standard_normal(COLLOCATION_N), device=dev)
+    EtV = mesh.psum(E.T @ v[start:stop], region="layout")
+    sizes = meshes.block_sizes(COLLOCATION_N, P)
+    runs["collocation"] = dict(Df=mesh.gather_rows(D @ f, sizes).cpu(),
+                               EEv=mesh.gather_rows(E @ EtV, sizes).cpu())
+    lines.append(f"K sharded collocation N={COLLOCATION_N}: {seconds:.3f} s, rank block "
+                 f"{tuple(D.shape)}; staged {mesh.staged_bytes / 2**20:.1f} MiB, layout "
+                 f"{mesh.totals('layout')}")
+    counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    return dict(lines=lines, runs=runs, launches=counts)
+
+
+def compare_final(label, got, ref_mean, ref_cov, ref_diff, d=None):
+    """A sharded run's final mean, covariance Gram and diffusion against a
+    single-GPU run's, relative, held to SHARDED_RTOL."""
+    mean, cov = got["mean"].to(ref_mean.device), got["cov"].to(ref_mean.device)
+    out = dict(mean=rel(mean[:, :d], ref_mean[:, :d]), gram=rel(cov @ cov.T, ref_cov @ ref_cov.T),
+               diff=abs(got["diff"] / float(ref_diff) - 1))
+    print(f"{label}: mean rel {out['mean']:.3e}, Gram rel {out['gram']:.3e}, diffusion rel "
+          f"{out['diff']:.3e} (held to {SHARDED_RTOL:g})", flush=True)
+    check(max(out.values()) <= SHARDED_RTOL, f"{label}: sharded and single-GPU runs disagree")
+
+
+def phase_sharded_large(pt, dev, launches, card_line):
+    """J. One NCCL rank at the N = 1e4 point, spawned by the launcher (NCCL
+    takes one rank per GPU): the distributed init, 3 two-QR memory-bounded
+    steps with the cache placed by shard_cache(shard_operands=True), the
+    counted collectives against the comm model at P = 1, and the plain
+    single-GPU two-QR run of the same problem."""
+    from pnmol_tpu_torch.parallel import distributed
+
+    import chip_smoke
+
+    launches.reset()
+    t0 = time.perf_counter()
+    (got, _), = distributed.spawn_ranks(chip_smoke.sharded_large_rank, 1, backend="nccl",
+                                       device="cuda:0", timeout=900)
+    launches.read("J one NCCL rank: this process", {})
+    for line in got["lines"]:
+        print(f"{line} [{card_line}]", flush=True)
+    add_rank_launches("J one NCCL rank (no kernel on its path)", launches, [got],
+                      dict.fromkeys(SOURCES, 0))
+    print(f"J: {time.perf_counter() - t0:.1f} s with the rank's start", flush=True)
+    check(max(got["mean"], got["gram"], got["diff"]) <= SHARDED_RTOL,
+          f"J: sharded and plain runs disagree beyond {SHARDED_RTOL:g}")
+
+
+def phase_sharded_gloo(pt, dev, launches, card_line, plain, latent_plain, adaptive_plain):
+    """K. Two gloo ranks sharing the card (their collectives staged through
+    host memory) at the bench width, each run against its single-GPU plain
+    run (phases 5, 9 and 11); the collocation against the single-GPU
+    ``collocation_global`` at N = 1e4. The ranks' Gram-kernel launches add
+    to the record."""
+    from pnmol_tpu_torch.parallel import distributed
+
+    import chip_smoke
+
+    launches.reset()
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_ranks(chip_smoke.sharded_gloo_rank, 2, backend="gloo",
+                                    device="cuda:0", timeout=900)
+    elapsed = time.perf_counter() - t0
+    launches.read("K two gloo ranks: this process", {})
+    for got, _ in ranks:
+        for line in got["lines"]:
+            print(f"{line} [{card_line}]", flush=True)
+    print(f"K: {elapsed:.1f} s with the ranks' start", flush=True)
+    add_rank_launches("K two gloo ranks", launches, [got for got, _ in ranks],
+                      {**dict.fromkeys(SOURCES, 0), "gram_radial": 2})
+    runs = ranks[0][0]["runs"]
+    check(all(np.array_equal(r["runs"]["adaptive"]["mean"].numpy(),
+                             runs["adaptive"]["mean"].numpy()) for r, _ in ranks),
+          "K: the ranks' adaptive means differ")
+
+    ref_cov = plain["state"].y.cov_sqrtm * torch.sqrt(plain["diffusion"])
+    for label in ("fused distributed-QR", "two-QR"):
+        compare_final(f"K {label} vs phase 5's plain run", runs[label], plain["state"].y.mean,
+                      ref_cov, plain["diffusion"])
+    adaptive = runs["adaptive"]
+    info = adaptive_plain["info"]
+    print(f"K adaptive: {adaptive['n_steps']} steps of {adaptive['n_attempts']} attempts "
+          f"(phase 11's plain run: {info['num_steps']} of {info['num_attempted_steps']})",
+          flush=True)
+    check(adaptive["n_steps"] == info["num_steps"]
+          and adaptive["n_attempts"] == info["num_attempted_steps"]
+          and abs(adaptive["t"] - ADAPTIVE_TMAX) <= 1e-12, "K adaptive: step counts")
+    # along the adaptive trajectory (dt up to 0.03) the CholeskyQR3 panels
+    # drift from a Householder QR by far more than roundoff, in the JAX
+    # package as in the port (tests/torch_adaptive_drift.py: 4.1e-4 in the
+    # mean and 9.8e-3 in the Gram on one device, both packages): the sharded
+    # run is held to the single-GPU run of the same factorization (phase
+    # 11's solver with the distributed factorization on a one-rank mesh),
+    # and its drift from phase 11's plain run to 1.5x that run's
+    from pnmol_tpu_torch.parallel import meshes, sharded_filter
+
+    hook = run_solver(heat_solver(pt, sharded_filter.make_distributed_factorization(
+        mesh=meshes.make_mesh())), full_width_heat(pt, dev, tmax=ADAPTIVE_TMAX), num_steps=None)
+    check(hook["info"]["num_attempted_steps"] == info["num_attempted_steps"],
+          "K adaptive: the one-rank run's attempts")
+    scaled = {name: (run["state"].y.mean, run["state"].y.cov_sqrtm * torch.sqrt(run["diffusion"]),
+                     run["diffusion"]) for name, run in (("hook", hook), ("plain", adaptive_plain))}
+    compare_final("K adaptive vs the one-rank run of the same factorization", adaptive,
+                  *scaled["hook"])
+    drift = {}
+    for name, got in (("two gloo ranks", adaptive), ("one rank", dict(
+            mean=scaled["hook"][0], cov=scaled["hook"][1], diff=float(scaled["hook"][2])))):
+        mean, cov = got["mean"].to(dev), got["cov"].to(dev)
+        ref_mean, ref_cov, ref_diff = scaled["plain"]
+        drift[name] = (rel(mean, ref_mean), rel(cov @ cov.T, ref_cov @ ref_cov.T),
+                       abs(got["diff"] / float(ref_diff) - 1))
+        print(f"K adaptive, {name} against phase 11's plain run: mean rel {drift[name][0]:.3e}, "
+              f"Gram rel {drift[name][1]:.3e}, diffusion rel {drift[name][2]:.3e}", flush=True)
+    check(all(a <= 1.5 * b for a, b in zip(drift["two gloo ranks"], drift["one rank"])),
+          "K adaptive: the sharded run drifts beyond the one-rank run's drift")
+    compare_final("K latent vs the plain latent run (phase 9's, 2 steps)", runs["latent"],
+                  latent_plain["state"].y.mean,
+                  latent_plain["state"].y.cov_sqrtm * torch.sqrt(latent_plain["diffusion"]),
+                  latent_plain["diffusion"], d=N_POINTS)
+
+    # the reference: the single-GPU collocation_global with K(X, X) from
+    # explicit differences (x - y)^2 in f64, free of the distance trick whose
+    # rounding (eps * input_scale^2 * |x - c|^2, about 2e-8 of an entry here)
+    # both the sharded run and the single-GPU Gram-kernel run carry; both are
+    # held to COLLOCATION_RTOL of it (comparison launches: not counted)
+    col = runs["collocation"]
+    Df, EEv = collocation_actions(pt, dev, COLLOCATION_N, exact=True)
+    Df_trick, EEv_trick = collocation_actions(pt, dev, COLLOCATION_N)
+    got = {"sharded": (rel(col["Df"].to(dev), Df), rel(col["EEv"].to(dev), EEv)),
+           "single-GPU": (rel(Df_trick, Df), rel(EEv_trick, EEv))}
+    print(f"K collocation N={COLLOCATION_N} against the single-GPU collocation_global with "
+          f"explicit-difference K: " + "; ".join(
+              f"{name}: D f rel {d:.3e}, E E^T v rel {e:.3e}" for name, (d, e) in got.items())
+          + f" (held to {COLLOCATION_RTOL:g}); sharded against the single-GPU Gram-kernel run: "
+          f"{rel(col['Df'].to(dev), Df_trick):.3e}, {rel(col['EEv'].to(dev), EEv_trick):.3e}",
+          flush=True)
+    check(max(max(pair) for pair in got.values()) <= COLLOCATION_RTOL,
+          "K collocation: the sharded or single-GPU run disagrees with the reference")
+
+
+def collocation_actions(pt, dev, n, exact=False):
+    """``(D f, E E^T v)`` of the single-GPU ``collocation_global`` on n points
+    of [0, 1] (``SquareExponential(1/dx)``, figure 2's nuggets), with
+    f = sin(3 x) and v from seed 0. ``exact`` evaluates K(X, X) through the
+    kernel's pairwise form (explicit differences) instead of the Gram
+    kernel's distance trick."""
+    x = torch.linspace(0.0, 1.0, n, dtype=torch.float64, device=dev)[:, None]
+    f = torch.sin(3.0 * x[:, 0])
+    v = torch.tensor(np.random.default_rng(0).standard_normal(n), device=dev)
+    kernel = pt.kernels.SquareExponential(input_scale=float(n - 1))
+    D, E = pt.discretize.collocation_global(
+        pt.diffops.laplace(), pt.mesh.RectangularMesh(x.cpu().numpy(), device=dev),
+        kernel=pt.kernels.Lambda(kernel.pairwise) if exact else kernel,
+        nugget_gram_matrix=1e-12, nugget_cholesky_E=1e-10, symmetrize_cholesky_E=True)
+    return D @ f, E @ (E.T @ v)
+
+
+def latent_plain_short(pt, dev):
+    """The phase-9 configuration cut to K's latent steps, on the plain path."""
+    heat = full_width_heat(pt, dev, tmax=SHARDED_LATENT_STEPS * DT)
+    solver = heat_solver(pt, None, cls=pt.latent.LinearLatentForceEK1,
+                         steprule=pt.odetools.step.Constant(DT))
+    return run_solver(solver, heat, num_steps=SHARDED_LATENT_STEPS)
+
+
+def phase_dt_sweep(pt, dev, launches, card_line):
+    """L. Figure 3's dt sweep (experiments/figure3.py:36-66, 113-140): SIR at
+    dx = 1/64 (d = 195, nu = 1, stencils 3 and 5, the duplicate(Matern52 +
+    WhiteNoise, 3) prior, tmax 6) through ``SemiLinearWhiteNoiseEK1``, the 18
+    dts 2^(2 .. -6.5) as one padded batched sweep against 18 sequential
+    ``simulate_final_state`` runs."""
+    from pnmol_tpu_torch.parallel import ensembles
+
+    sir = pt.pde.examples.sir_1d_discretized(
+        device=dev, t0=0.0, tmax=FIG3_TMAX, dx=FIG3_DX, stencil_size_interior=3,
+        stencil_size_boundary=5, diffusion_rate_S=0.035, diffusion_rate_I=0.035,
+        diffusion_rate_R=0.035, kernel=pt.kernels.SquareExponential())
+    dts = FIG3_DTS.tolist()
+
+    def solver(dt):
+        return pt.white.SemiLinearWhiteNoiseEK1(
+            num_derivatives=1, steprule=pt.odetools.step.Constant(dt), spatial_kernel=prior(pt, 3))
+
+    launches.reset()
+    first = solver(dts[0])
+    state = first.initialize(sir)
+    (means, covs, diffs), sweep_s = timed_sync(lambda: ensembles.dt_sweep_final_states(
+        cache=first._cache, num_derivatives=1, f=sir.f, df=sir.df, linear=False,
+        mean0=state.y.mean, cov0=state.y.cov_sqrtm, t0=0.0, tmax=FIG3_TMAX, dts=dts))
+    launches.read("L dt sweep (no kernel on its path)", {})
+    finals, seq_s = timed_sync(lambda: [solver(dt).simulate_final_state(sir) for dt in dts])
+    worst = dict(mean=0.0, gram=0.0, diff=0.0)
+    steps = 0
+    for i, (final, info) in enumerate(finals):
+        C = final.y.cov_sqrtm
+        worst["mean"] = max(worst["mean"], rel(means[i], final.y.mean))
+        worst["gram"] = max(worst["gram"], rel(covs[i] @ covs[i].T, C @ C.T))
+        worst["diff"] = max(worst["diff"],
+                            abs(diffs[i].item() / final.diffusion_squared_local.item() - 1))
+        steps += info["num_steps"]
+    print(f"L figure 3 dt sweep (SIR dx=1/64, d={sir.L.shape[0]}, {len(dts)} dts, "
+          f"{steps} sequential steps, {int(np.ceil(FIG3_TMAX / dts[-1]))} padded): sweep "
+          f"{sweep_s:.3f} s, sequential {seq_s:.3f} s; worst mean rel {worst['mean']:.3e}, "
+          f"Gram rel {worst['gram']:.3e}, diffusion rel {worst['diff']:.3e} (held to 1e-10) "
+          f"[{card_line}]", flush=True)
+    check(max(worst.values()) <= 1e-10, "L: the sweep and the sequential solves disagree")
+
+
 def phase_build(cuda_build):
     """One nvcc per source, all started together."""
     def timed(name):
@@ -1887,7 +2383,7 @@ def main():
                  {"leaf_qr": 10}, "the R-form hook (leaf kernel)")
     latent_plain = phase_latent(pt, launches, heat, card_line)
     phase_lotka_volterra(pt, dev, launches, card_line)
-    phase_adaptive(pt, dev, launches, card_line)
+    adaptive_plain = phase_adaptive(pt, dev, launches, card_line)
     phase_semilinear_latent(pt, dev, launches, card_line)
     phase_latent_r_form(pt, tq, launches, heat, latent_plain, card_line)
     phase_latent_large(pt, dev, launches, card_line)
@@ -1901,6 +2397,10 @@ def main():
     phase_heat_2d(pt, tgram, dev, launches, card_line)
     phase_advection_3d(pt, dev, launches, card_line)
     phase_nd_small(pt, dev, launches, card_line)
+    phase_sharded_large(pt, dev, launches, card_line)
+    phase_sharded_gloo(pt, dev, launches, card_line, plain, latent_plain_short(pt, dev),
+                       adaptive_plain)
+    phase_dt_sweep(pt, dev, launches, card_line)
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 

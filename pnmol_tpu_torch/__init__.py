@@ -65,6 +65,13 @@ normals), operators from the diffop algebra, the n-D Neumann operator
 ``fisher_kpp_2d_discretized`` of ``pde.examples``. The 2-D heat on 100 x 100
 points runs so on one GPU, with the N = 1e4 solver above.
 
+The space-sharded tier, ``parallel`` (explicit SPMD over
+``torch.distributed``: rank meshes with named, counted collectives, the
+sharded linear algebra, the distributed initialization, the sharded white
+and latent steps and solves, the batched dt sweep), and the comm model of
+``utils.comm_model`` run the same solvers across ranks; the backend
+(``"nccl"`` or ``"gloo"``) is the caller's.
+
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
 """
@@ -72,7 +79,7 @@ device on its own. This package imports ``torch`` and never ``jax``.
 from pnmol_tpu_torch import config, diffops, discretize, kernels, mesh, ops
 from pnmol_tpu_torch import models
 from pnmol_tpu_torch import models as pde  # alias, as in pnmol_tpu
-from pnmol_tpu_torch import interop, odetools
+from pnmol_tpu_torch import interop, odetools, parallel, utils
 from pnmol_tpu_torch.kernels import duplicate
 from pnmol_tpu_torch.models import examples
 from pnmol_tpu_torch.solvers import latent, pdefilter, smoothing, white
@@ -107,7 +114,9 @@ __all__ = [
     "odetools",
     "ops",
     "pde",
+    "parallel",
     "pdefilter",
     "smoothing",
+    "utils",
     "white",
 ]

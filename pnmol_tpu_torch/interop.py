@@ -1,10 +1,10 @@
 """Build the port's objects from NumPy arrays.
 
-Hands a problem, a white- or latent-solver cache, a steady-state cache, or a
-PDE- or ODE-filter state that another implementation (for example the JAX
-package, converted with ``np.asarray``) produced to the port, so that both
-run from the same numbers. Takes NumPy arrays only; everything lands as
-float64 on ``device``.
+Hands a problem, a white- or latent-solver cache, a steady-state cache, a
+PDE- or ODE-filter state, or a rank's block of a sharded array that another
+implementation (for example the JAX package, converted with ``np.asarray``)
+produced to the port, so that both run from the same numbers. Takes NumPy
+arrays only; everything lands as float64 on ``device``.
 """
 
 import numpy as np
@@ -107,3 +107,15 @@ def ode_filter_state(*, t, mean, cov_sqrtm, device):
         reference_state=None,
         diffusion_squared_local=mean.new_zeros(()),
     )
+
+
+def local_shard(array, mesh, spec, *, device):
+    """This rank's block of a global array under ``spec`` (a
+    :class:`pnmol_tpu_torch.parallel.meshes.Layout` or its tuple of axis
+    names, as a ``PartitionSpec``), as the port's sharded functions take it:
+    e.g. the column block of a JAX-computed covariance factor for
+    ``(None, "space")``."""
+    from pnmol_tpu_torch.parallel import meshes
+
+    layout = spec if isinstance(spec, meshes.Layout) else meshes.Layout(tuple(spec))
+    return mesh.shard(_tensor(array, device), layout).contiguous()

@@ -505,3 +505,54 @@ def test_radial_kernel_dispatches_2d_and_3d_grams_to_the_kernel(cuda):
         torch.testing.assert_close(
             gram, tgram.gram_radial_reference(X, X, 4.0, 1.0, phi_name="matern52"),
             rtol=0, atol=1e-12)
+
+
+def _sharded_step_rank(payload, device):
+    """One rank of the sharded-step checks: the distributed-QR white step
+    (fused, or the two-QR split) at N=512 on the card against the plain
+    fused step on the same state."""
+    from pnmol_tpu_torch.parallel import distributed, sharded_filter
+
+    torch.set_num_threads(1)
+    mesh = distributed.global_mesh(batch=1)
+    heat = pt.pde.examples.heat_1d_discretized(dx=1.0 / 511, tmax=1.0, device=device)
+    solver = pt.white.LinearWhiteNoiseEK1(steprule=pt.odetools.step.Constant(1e-3))
+    state = solver.initialize(heat)
+    plain = solver._step_fn(state.y.mean, state.y.cov_sqrtm, 1e-3, 1e-3)
+    two_qr = payload["two_qr"]
+    cache = sharded_filter.shard_cache(solver._cache, mesh, distributed_qr=True,
+                                       shard_operands=two_qr)
+    step = sharded_filter.make_space_sharded_white_step(
+        cache=cache, num_derivatives=2, mesh=mesh, distributed_qr=True, two_qr=two_qr,
+        panel_size=256)
+    mesh.reset_counts()
+    got = step(state.y.mean, mesh.shard(state.y.cov_sqrtm, sharded_filter.cov_layout(True)),
+               1e-3, 1e-3)
+    D = state.y.cov_sqrtm.shape[0]
+    sizes = [D // mesh.shape["space"]] * mesh.shape["space"]
+    cov = mesh.gather_rows(got[1].T, sizes).T
+    return dict(
+        device=str(got[0].device),
+        mean=(got[0] - plain[0]).abs().max().item() / plain[0].abs().max().item(),
+        gram=((cov @ cov.T - plain[1] @ plain[1].T).abs().max()
+              / (plain[1] @ plain[1].T).abs().max()).item(),
+        diff=abs(got[4].item() - plain[4].item()) / plain[4].item(),
+        staged=mesh.staged_bytes, schedule=mesh.totals(),
+    )
+
+
+@pytest.mark.parametrize("backend, ranks, two_qr", [("nccl", 1, False), ("nccl", 1, True),
+                                                    ("gloo", 2, False)],
+                         ids=["nccl-fused", "nccl-two-qr", "gloo-two-ranks"])
+def test_sharded_step_on_the_card_matches_the_plain_step(cuda, backend, ranks, two_qr):
+    from pnmol_tpu_torch.parallel import distributed
+
+    runs = distributed.spawn_ranks(_sharded_step_rank, ranks, backend=backend, device="cuda:0",
+                                   payload={"two_qr": two_qr}, timeout=600)
+    for got, _ in runs:
+        assert got["device"] == "cuda:0"
+        assert got["mean"] < 1e-10 and got["diff"] < 1e-8
+        assert got["gram"] < 1e-6
+        # gloo stages every collective's CUDA operand through host memory
+        assert (got["staged"] > 0) == (backend == "gloo")
+        assert got["schedule"]["all-reduce"] > 0

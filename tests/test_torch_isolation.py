@@ -14,6 +14,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "pnmol_tpu")
+# the rank bodies that spawned test ranks import: they must load no JAX
+RANK_HELPERS = (REPO / "tests" / "torch_parallel_ranks.py",)
 
 torch.set_num_threads(1)
 
@@ -32,19 +34,22 @@ def _imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", _sources() + list(RANK_HELPERS),
+                         ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
 # the modules of the adaptive, semilinear and latent-force slice, of the
 # large-N slice, of the MOL baseline and calibration slice, of
-# steady-state mode, and of the n-D problems
+# steady-state mode, of the n-D problems, and of the space-sharded tier
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
                  "odetools.reference_solver", "ops.kalman", "solvers.smoothing", "ops.dare",
-                 "diffops", "mesh", "interop")
+                 "diffops", "mesh", "interop", "parallel", "parallel.meshes",
+                 "parallel.distributed", "parallel.sharded_linalg", "parallel.sharded_filter",
+                 "parallel.sharded_init", "parallel.ensembles", "utils", "utils.comm_model")
 
 
 def test_the_slice_modules_are_checked():
@@ -62,6 +67,29 @@ def test_importing_the_port_loads_no_jax():
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=300)
+
+
+def test_rank_helpers_load_no_jax():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        "import torch_parallel_ranks\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=300)
+
+
+@pytest.mark.parametrize("module",
+                         [m for m in SLICE_MODULES if m.startswith(("parallel", "utils"))])
+def test_the_sharded_tier_picks_no_device(module):
+    """The backend and the device are the caller's: the sharded tier never
+    asks whether a GPU is there."""
+    path = REPO / "pnmol_tpu_torch" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    assert "cuda.is_available" not in path.read_text()
 
 
 def _run_smoke(cwd):
