@@ -154,7 +154,30 @@ Phases (any failure exits non-zero; nothing is swallowed):
 27. (L) figure 3's dt sweep: SIR at dx = 1/64 (d = 195, nu = 1) through
     ``SemiLinearWhiteNoiseEK1``, ``ensembles.dt_sweep_final_states`` over
     the 18 dts 2^(2 .. -6.5) against 18 sequential ``simulate_final_state``
-    runs (1e-10), both times printed.
+    runs (1e-10), both times printed;
+28. (M, after phase 4) gradients: ``torch.autograd.grad`` through 5 plain
+    white steps of the dx = 0.2 heat on the card against central
+    differences (1e-4) and the CPU (1e-10); the Householder panel route
+    must raise (no backward), before any launch;
+29. (O, after phase 5) the utilities on phase 5's panel-kernel path:
+    ``solve_resilient`` with a NaN injected at step 10 (one restart from the
+    step-5 checkpoint at dt / 2: 40 attempts, 693 ``panel_lq``), a
+    checkpoint round trip of the card's state (bitwise, device kept), the
+    ``init_profile`` of ``initialize`` under ``PNMOL_INIT_PROFILE=1`` and
+    ``time_blocked`` of one step (115 ``panel_lq``);
+30. (E2, after E) the steady sharded tier on two gloo ranks at phase E's
+    point: the seeded sharded steady state (its cov_inf Gram held to E's at
+    the JAX test's rtol 5e-3, atol 1e-4; the mean after 512 frozen steps to
+    E's at 1e-5; the gain printed), the sharded mean-only solve against the
+    frozen recursion of its blocks, and the frozen-gain sweep of 3 dts over
+    the batch axis against sequential steady solves (1e-10);
+31. (N, after F) the steady sharded tier on one NCCL rank of this process
+    at phase F's point: the distributed init, the row-sharded doubling seed
+    (each doubling's collectives against ``comm_model``), 4 polish
+    iterations, 20 mean-only steps; held to phase F's cache, moved to the
+    host before N starts (the Gram within 10 polish deltas, the 20-step
+    frozen mean at 1e-3; the gain printed). F and N print the live CUDA
+    storages before their seeds and doublings; J prints its steps' split.
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -171,8 +194,11 @@ the kernels' JSON record, the card, and ``{"ok": true, "device": {...}}``.
 Imports neither JAX nor pnmol_tpu.
 """
 import concurrent.futures
+import contextlib
 import json
+import os
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -1620,6 +1646,43 @@ class StageTimer:
                 f"({doublings}), polish {sec['polish']:.3f} s, harvest {sec['harvest']:.3f} s")
 
 
+class SplitTimer:
+    """Seconds spent in some functions of a module while the ``with`` block
+    runs: each is wrapped, its calls synchronized on both ends and summed
+    (the ``PhaseTimer`` of ``utils.profiling`` for functions that a path
+    calls many times)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.seconds, self.calls, self.saved = {}, {}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return out
+        return wrapped
+
+    def line(self, total_s):
+        rest = total_s - sum(self.seconds.values())
+        return ", ".join(f"{name} {self.seconds[name]:.3f} s ({self.calls[name]} calls)"
+                         for name in self.seconds) + f", the rest {rest:.3f} s of {total_s:.3f} s"
+
+
 def rel_max(a, b):
     """max|a - b| / max|b|."""
     return ((a - b).abs().max() / b.abs().max()).item()
@@ -1685,7 +1748,7 @@ def phase_steady(pt, dev, launches, card_line):
             steprule=constant, num_derivatives=NU, spatial_kernel=prior(pt),
             factorization=factorization, steady_state=opts)
 
-    seeded = {}
+    seeded, final_means = {}, {}
     for fac, label in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
         solver = white(fac)
         launches.reset()
@@ -1713,6 +1776,7 @@ def phase_steady(pt, dev, launches, card_line):
         check(info["dare_residual"] < 1e-6, f"{name}: dare_residual {info['dare_residual']:.3e}")
         check(abs(u / JAX_STEADY_MAX_U - 1) <= 1e-5, f"{name}: max|u| {u} after the steps")
         seeded[fac] = solver
+        final_means[fac] = run["state"].y.mean
     a, b = seeded["householder"].steady_cache, seeded[None].steady_cache
     errs = (rel_max(a.cov_inf @ a.cov_inf.T, b.cov_inf @ b.cov_inf.T),
             rel_max(a.L21 @ a.Sl_inv, b.L21 @ b.Sl_inv), rel_max(a.err_vec, b.err_vec))
@@ -1772,6 +1836,7 @@ def phase_steady(pt, dev, launches, card_line):
         runs[fac] = run
     compare_runs("steady latent: kernel path vs plain path", runs["householder"], runs[None],
                  d=N_POINTS)
+    return dict(solver=seeded["householder"], mean=final_means["householder"])
 
 
 def phase_steady_large(pt, dev, launches, card_line):
@@ -1791,7 +1856,9 @@ def phase_steady_large(pt, dev, launches, card_line):
     held = torch.cuda.memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
     launches.reset()
-    with StageTimer(pt) as stages:
+    # what is resident before the seed and before the doubling (the
+    # dumps of utils.debug, on for this initialization)
+    with StageTimer(pt) as stages, environ(PNMOL_DEBUG_LIVE="1"):
         state0, init_s = timed_sync(lambda: solver.initialize(heat))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     sc, info = solver.steady_cache, solver.steady_diagnostics
@@ -1856,6 +1923,13 @@ def phase_steady_large(pt, dev, launches, card_line):
           f"{slope:.6e}, the initial derivative {du0:.6e} [{card_line}]", flush=True)
     check((u_full > u0) == (u_frozen > u0), f"{name}: full and frozen steps move max|u| apart")
     check(rel_max(frozen.y.mean, mean_full) <= 1e-3, f"{name}: frozen steps leave the full steps")
+    # phase N's reference, on the host: the device tensors go with this frame
+    frozen = state0
+    for _ in range(SHARDED_STEADY_STEPS):
+        frozen, _ = solver.attempt_step(frozen, STEADY_DT, heat)
+    return dict(cov_inf=sc.cov_inf.cpu(), gain=(sc.L21 @ sc.Sl_inv).cpu(),
+                sxz=(sc.L21 @ sc.Sl.T).cpu(), mean=frozen.y.mean.cpu(), delta=sc.delta,
+                sda_iterations=info["sda_iterations"], steps_per_s=rate)
 
 
 # the space-sharded tier: J, one NCCL rank at the N = 1e4 point (nu = 1,
@@ -1955,7 +2029,7 @@ def sharded_large_rank(payload, device):
     problem in the same process; returns the lines to print and the
     comparison."""
     import pnmol_tpu_torch as pt
-    from pnmol_tpu_torch.parallel import distributed, sharded_filter, sharded_init
+    from pnmol_tpu_torch.parallel import distributed, sharded_filter, sharded_init, sharded_linalg
     from pnmol_tpu_torch.utils import comm_model
 
     torch.set_num_threads(4)
@@ -1984,14 +2058,18 @@ def sharded_large_rank(payload, device):
         distributed_qr=True, two_qr=True)
     mesh.reset_counts()
     t1 = time.perf_counter()
-    mean, cov, diff = solve(mean0, C0, float(heat.t0))
-    torch.cuda.synchronize()
-    steps_per_s = SHARDED_STEPS / (time.perf_counter() - t1)
+    with SplitTimer(sharded_linalg, ("blocked_qr_r_sharded", "ring_matmul", "gram_rowsharded",
+                                     "blocked_cholesky", "blocked_cho_solve")) as split:
+        mean, cov, diff = solve(mean0, C0, float(heat.t0))
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    steps_per_s = SHARDED_STEPS / step_s
     lines.append(counted_against_model(
         f"J {SHARDED_STEPS} two-QR steps", mesh,
         comm_model.two_qr_step_cost(d, LARGE_NU, n_bc, P), SHARDED_STEPS))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     model = comm_model.step_time_model(comm_model.two_qr_step_cost(d, LARGE_NU, n_bc, P), P)
+    lines.append(f"J the steps' split (synchronized): {split.line(step_s)}")
     lines.append(f"J sharded two-QR (N={LARGE_N}, D={(LARGE_NU + 1) * d}, m={d + n_bc}): init "
                  f"{init_s:.3f} s, {steps_per_s:.3f} steps/s over {SHARDED_STEPS} steps, peak "
                  f"{peak:.2f} GiB; the comm model's FP64-peak bound of a step "
@@ -2329,6 +2407,478 @@ def phase_dt_sweep(pt, dev, launches, card_line):
     check(max(worst.values()) <= 1e-10, "L: the sweep and the sequential solves disagree")
 
 
+# the steady half of the sharded tier and the utilities: M, gradients
+# through 5 plain white steps of the dx = 0.2 heat (the JAX package's
+# differentiability problem); N, the sharded steady state on one NCCL rank
+# at phase F's point, then 20 mean-only steps; E2, two gloo ranks at phase
+# E's point, 512 mean-only steps and a three-dt frozen-gain sweep; O, the
+# utilities on phase 5's path
+GRAD_STEPS, GRAD_DT, GRAD_SCALE = 5, 0.1, 0.035
+SHARDED_STEADY_STEPS = 20
+STEADY_SWEEP_DTS, STEADY_SWEEP_TMAX = (1e-2, 5e-3, 2.5e-3), 0.1
+# the tolerances of tests/test_parallel.py's seeded sharded steady state
+# (the JAX package's: both sides polish from different seeds), on the Gram
+# of cov_inf. The gain K = L21 Sl^-1 is printed, not held: along the
+# innovation directions of the exact Dirichlet rows it carries the
+# distributed factorization's rounding times cond(S), and at phase E's point
+# the JAX package's own sharded gain sits beyond these tolerances from its
+# single-device one (tests/torch_steady_gain_spread.py). Its action is held
+# instead: the mean after the frozen steps against the single-GPU run's, to
+# the limit phases E and F already put on the frozen gain's own gap (frozen
+# against full steps: 1e-5 at N = 512, 1e-3 at N = 1e4)
+STEADY_RTOL, STEADY_ATOL = 5e-3, 1e-4
+STEADY_TRAJECTORY_RTOL = {N_POINTS: 1e-5, LARGE_N: 1e-3}
+# at N = 1e4 the Gram's entries outgrow the absolute atol; there it is held
+# as tests/test_parallel.py's chunked test holds two stopped polishes: both
+# inside the stopping delta's neighborhood, rtol = 10 x delta of max |G|
+STEADY_GRAM_DELTAS = 10.0
+RESILIENT_NAN_STEP, RESILIENT_CHECKPOINT_EVERY = 10, 5
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the ``with`` block, then restore them."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_gradients(pt, tq, dev, launches, card_line):
+    """M. ``torch.autograd.grad`` of the final mean's squared norm after 5
+    plain white steps with respect to the diffusion scale (at 0.035), on the
+    card, against central differences (1e-4) and the same run on the CPU
+    (1e-10); then the same loss through the Householder panel route, which
+    must raise (the kernel has no backward)."""
+
+    def make_loss(device):
+        heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=device)
+        solver = pt.white.LinearWhiteNoiseEK1(steprule=pt.odetools.step.Constant(GRAD_DT),
+                                              spatial_kernel=prior(pt))
+        state = solver.initialize(heat)
+        base = heat.L / heat.diffop_scale
+
+        def loss(scale, factorization=None):
+            cache = solver._cache._replace(L=scale * base)
+            mean, cov = state.y.mean, state.y.cov_sqrtm
+            for k in range(1, GRAD_STEPS + 1):
+                mean, cov, *_ = pt.white.white_attempt_step(
+                    cache, mean, cov, k * GRAD_DT, GRAD_DT, num_derivatives=NU,
+                    factorization=factorization)
+            return (mean[0] ** 2).sum()
+
+        return loss
+
+    def grad(loss, device):
+        x = torch.tensor(GRAD_SCALE, dtype=torch.float64, device=device, requires_grad=True)
+        return torch.autograd.grad(loss(x), x)[0].item()
+
+    launches.reset()
+    loss = make_loss(dev)
+    (g, g_s) = timed_sync(lambda: grad(loss, dev))
+    g_cpu = grad(make_loss("cpu"), "cpu")
+    eps = 1e-6
+    with torch.no_grad():
+        up, down = (loss(torch.tensor(GRAD_SCALE + s * eps, dtype=torch.float64, device=dev))
+                    for s in (1, -1))
+    fd = (up - down).item() / (2 * eps)
+    launches.read("M gradients through the plain steps (no kernel on the path)", {})
+    print(f"M gradient through {GRAD_STEPS} plain white steps (dx=0.2): {g:.16e} on the card in "
+          f"{g_s:.3f} s, {g_cpu:.16e} on the CPU (rel {abs(g / g_cpu - 1):.3e}), central "
+          f"differences {fd:.16e} (rel {abs(g / fd - 1):.3e}) [{card_line}]", flush=True)
+    check(abs(g - g_cpu) <= 1e-10 * abs(g_cpu), "M: the card's gradient differs from the CPU's")
+    check(abs(g - fd) <= 1e-4 * abs(fd), "M: the gradient differs from central differences")
+    hook = tq.make_householder_lq_factorization()
+    launches.reset()
+    try:
+        grad(lambda x: loss(x, hook), dev)
+    except RuntimeError as err:
+        raised = str(err)
+    else:
+        raised = None
+    launches.read("M gradient through the panel route (raises before a launch)", {})
+    print(f"M gradient through the Householder panel route raises: {raised}", flush=True)
+    check(raised is not None and "no backward" in raised,
+          "M: a gradient through the panel route did not raise")
+
+
+def compare_blocks(got, ref, rtol=STEADY_RTOL, atol=STEADY_ATOL, chunk=2048):
+    """``got`` against ``ref`` entrywise; a pair ``(X, Y)`` stands for ``X @
+    Y``, formed on the card a chunk of rows at a time. Returns ``(max abs
+    difference, its ratio to max |ref|, max |ref|, the excess of the
+    difference over atol + rtol |ref|)``."""
+    def rows(a, r):
+        return a[0][r:r + chunk] @ a[1] if isinstance(a, tuple) else a[r:r + chunk]
+
+    worst = excess = scale = 0.0
+    n = (got[0] if isinstance(got, tuple) else got).shape[0]
+    for r in range(0, n, chunk):
+        a, b = rows(got, r), rows(ref, r)
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        excess = max(excess, (diff - atol - rtol * b.abs()).max().item())
+        scale = max(scale, b.abs().max().item())
+    return worst, worst / scale, scale, excess
+
+
+def phase_sharded_steady_large(pt, dev, launches, card_line, reference):
+    """N. The sharded steady tier on ONE NCCL rank (a process group of this
+    process) at phase F's point (nu = 1, D = 2e4, m = 10002,
+    Constant(1e-2), f64): the distributed init, the cache placed by
+    ``shard_cache(distributed_qr=True)``, ``converge_space_sharded_steady_state``
+    seeded by ``sharded_steady_seed`` (each doubling's collectives against
+    the comm model) with 4 polish iterations (phase F's), then 20 steps of
+    ``make_space_sharded_steady_solve`` against the single-GPU frozen
+    recursion from the same blocks; held to phase F's (host) reference: the
+    Gram of cov_inf within STEADY_GRAM_DELTAS polish deltas and the mean
+    after the 20 frozen steps at STEADY_TRAJECTORY_RTOL (the gain and the
+    Gram's excess over STEADY_RTOL/STEADY_ATOL printed)."""
+    import torch.distributed as dist
+
+    from pnmol_tpu_torch.parallel import distributed, sharded_dare, sharded_filter, sharded_init
+    from pnmol_tpu_torch.utils import comm_model
+
+    torch.cuda.empty_cache()
+    distributed.init_distributed(backend="nccl", master_addr="127.0.0.1", master_port=free_port(),
+                                 world_size=1, rank=0, device=dev)
+    try:
+        mesh = distributed.global_mesh(batch=1)
+        P = mesh.shape["space"]
+        d, n = LARGE_N, LARGE_NU + 1
+        heat = dx_adapted_heat(pt, dev, d, STEADY_STEPS, dt=STEADY_DT)
+        D = n * d
+        name = f"N one NCCL rank, N={d} sharded steady state (D={D}, m={d + heat.B.shape[0]})"
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches.reset()
+        (mean0, C0, chol_gram), init_s = timed_sync(lambda: sharded_init.sharded_white_initialize(
+            heat, mesh, num_derivatives=LARGE_NU, spatial_kernel=prior(pt)))
+        cache = sharded_filter.shard_cache(full_white_cache(pt, heat, chol_gram, mesh, LARGE_NU),
+                                           mesh, distributed_qr=True)
+        del chol_gram
+        real_sda, real_seed = sharded_dare.sda_sharded, sharded_dare.sharded_steady_seed
+        stages = {}
+
+        def counted_sda(*args, **kwargs):
+            mesh.reset_counts()
+            res, stages["sda_s"] = timed_sync(lambda: real_sda(*args, **kwargs))
+            stages["sda_counts"] = (mesh.totals("schedule"), mesh.calls("schedule"),
+                                    mesh.totals("layout"))
+            return res
+
+        def timed_seed(*args, **kwargs):
+            out, stages["seed_s"] = timed_sync(lambda: real_seed(*args, **kwargs))
+            mesh.reset_counts()  # the polish's collectives from here on
+            return out
+
+        diagnostics = {}
+        sharded_dare.sda_sharded, sharded_dare.sharded_steady_seed = counted_sda, timed_seed
+        try:
+            with environ(PNMOL_DEBUG_LIVE="1"):
+                steady, steady_s = timed_sync(
+                    lambda: sharded_filter.converge_space_sharded_steady_state(
+                        cache=cache, cov0=C0, dt=STEADY_DT, num_derivatives=LARGE_NU, mesh=mesh,
+                        max_iters=4, diagnostics=diagnostics))
+        finally:
+            sharded_dare.sda_sharded, sharded_dare.sharded_steady_seed = real_sda, real_seed
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        polish = (mesh.calls("schedule"), mesh.totals("layout"))
+        del C0
+        launches.read(f"{name} (no kernel on the sharded path)", {})
+        its = diagnostics["sda_iterations"]
+        schedule, calls, layout = stages["sda_counts"]
+        model = model_totals([comm_model.blocked_cholesky_cost(D, P)] * 2
+                             + [comm_model.blocked_cho_solve_cost(D, D, P)] * 2, its)
+        print(f"{name}: init {init_s:.3f} s; seed {stages['seed_s']:.3f} s, of which SDA "
+              f"{its} doublings {stages['sda_s']:.3f} s ({stages['sda_s'] / its:.3f} s a doubling;"
+              f" phase F's dense SDA {reference['sda_iterations']} doublings), last delta "
+              f"{diagnostics['sda_delta']:.3e}, dare_residual {diagnostics['dare_residual']:.3e};"
+              f" polish {steady.local.iterations} iterations in "
+              f"{steady_s - stages['seed_s']:.3f} s, delta {steady.local.delta:.6e}; peak "
+              f"{peak:.2f} GiB, of which {held:.2f} GiB held before [{card_line}]", flush=True)
+        print(f"{name}: the doublings' collectives (kind: calls, elements) "
+              + ", ".join(f"{k}: {calls[k]}, {schedule[k]}" for k in sorted(schedule))
+              + f" = comm model ({its} x (2 blocked_cholesky + 2 blocked_cho_solve)); layout "
+              f"{layout}; the polish's {polish[0]} calls, layout {polish[1]}", flush=True)
+        check(schedule == model, f"N: the doublings' collectives {schedule} != comm model {model}")
+        check(abs(its - reference["sda_iterations"]) <= 2, f"N: {its} SDA doublings")
+        check(diagnostics["dare_residual"] < 1e-4,
+              f"N: dare_residual {diagnostics['dare_residual']:.3e}")
+        check(steady.local.iterations <= 4, f"N: {steady.local.iterations} polish iterations")
+
+        placed = sharded_filter.shard_steady_cache(steady, mesh)
+        solve = sharded_filter.make_space_sharded_steady_solve(
+            cache=cache, steady=placed, num_derivatives=LARGE_NU, mesh=mesh, dt=STEADY_DT,
+            num_steps=SHARDED_STEADY_STEPS)
+        (mean, diff), solve_s = timed_sync(lambda: solve(mean0, float(heat.t0)))
+        rate = SHARDED_STEADY_STEPS / solve_s
+        step = pt.white.make_steady_state_white_step(cache=cache.local, steady=placed.local,
+                                                     num_derivatives=LARGE_NU)
+        m_ref, diff_sum = mean0, 0.0
+        for k in range(1, SHARDED_STEADY_STEPS + 1):
+            m_ref, _, _, _, dsq = step(m_ref, None, k * STEADY_DT, STEADY_DT)
+            diff_sum += dsq.item()
+        solve_rel = rel(mean, m_ref)
+        print(f"{name}: {SHARDED_STEADY_STEPS} sharded mean-only steps at {rate:.1f} steps/s "
+              f"(phase F's bare loop {reference['steps_per_s']:.1f}); against the single-GPU "
+              f"frozen recursion from the same blocks: mean rel {solve_rel:.3e}, diffusion rel "
+              f"{abs(diff.item() / (diff_sum / SHARDED_STEADY_STEPS) - 1):.3e} [{card_line}]",
+              flush=True)
+        check(bool(torch.isfinite(mean).all()), "N: NaN or inf in the mean")
+        check(solve_rel <= 1e-12, "N: the sharded solve leaves the frozen recursion")
+        trajectory = rel(mean, reference["mean"].to(dev))
+        C, delta = steady.local.cov_inf, steady.local.delta
+        K = steady.local.L21 @ steady.local.Sl_inv
+        sxz = rel(steady.local.L21 @ steady.local.Sl.T, reference["sxz"].to(dev))
+        del placed, solve, cache, steady, mean0, mean, m_ref
+        torch.cuda.empty_cache()
+        C_ref = reference["cov_inf"].to(dev)
+        gram = compare_blocks((C, C.T), (C_ref, C_ref.T))
+        del C, C_ref
+        gain = compare_blocks(K, reference["gain"].to(dev))
+        gram_rtol = STEADY_GRAM_DELTAS * max(delta, reference["delta"])
+        print(f"{name} against phase F's single-GPU cache: cov_inf Gram max abs {gram[0]:.3e} "
+              f"(rel {gram[1]:.3e}, held to {gram_rtol:.3e}; max {gram[2]:.4e}; excess over "
+              f"rtol {STEADY_RTOL:g}, atol {STEADY_ATOL:g}: {gram[3]:.4e}); S_xz rel {sxz:.3e};"
+              f" the mean after {SHARDED_STEADY_STEPS} frozen steps rel {trajectory:.3e} (held "
+              f"to {STEADY_TRAJECTORY_RTOL[d]:g}); gain L21 Sl^-1 rel {gain[1]:.3e}, max |K| "
+              f"{gain[2]:.4e}, excess over rtol {STEADY_RTOL:g}, atol {STEADY_ATOL:g}: "
+              f"{gain[3]:.4e} (not held) [{card_line}]", flush=True)
+        check(trajectory <= STEADY_TRAJECTORY_RTOL[d],
+              "N: the frozen trajectory leaves phase F's")
+        check(gram[1] <= gram_rtol, "N: the cov_inf Gram leaves phase F's")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def sharded_steady_gloo_rank(payload, device):
+    """E2, on each of two gloo ranks sharing the card, at phase E's point:
+    the distributed init, the seeded sharded steady state (4 polish
+    iterations), 512 sharded mean-only steps, and the frozen-gain dt sweep
+    of the parent's per-dt caches over the batch axis; returns the lines,
+    the gathered blocks and results, and the rank's kernel launches."""
+    import pnmol_tpu_torch as pt
+    from pnmol_tpu_torch.parallel import distributed, ensembles, meshes, sharded_filter, \
+        sharded_init
+
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    mesh = distributed.global_mesh(batch=1)
+    wrappers = rank_wrappers()
+    heat = dx_adapted_heat(pt, dev, N_POINTS, STEADY_STEPS, dt=STEADY_DT)
+    lines = [f"E2: backend {mesh.backend}, rank {mesh.rank} of {mesh.shape['space']}, {dev}"]
+    (mean0, C0, chol_gram), init_s = timed_sync(lambda: sharded_init.sharded_white_initialize(
+        heat, mesh, num_derivatives=NU, spatial_kernel=prior(pt)))
+    cache = sharded_filter.shard_cache(full_white_cache(pt, heat, chol_gram, mesh, NU), mesh,
+                                       distributed_qr=True)
+    diagnostics = {}
+    mesh.reset_counts()
+    steady, steady_s = timed_sync(lambda: sharded_filter.converge_space_sharded_steady_state(
+        cache=cache, cov0=C0, dt=STEADY_DT, num_derivatives=NU, mesh=mesh, max_iters=4,
+        diagnostics=diagnostics))
+    lines.append(f"E2 seeded sharded steady state: init {init_s:.3f} s, seed and polish "
+                 f"{steady_s:.3f} s (SDA {diagnostics['sda_iterations']} doublings, "
+                 f"dare_residual {diagnostics['dare_residual']:.3e}; polish "
+                 f"{steady.local.iterations} iterations, delta {steady.local.delta:.3e}); "
+                 f"staged {mesh.staged_bytes / 2**20:.1f} MiB")
+    blocks = {name: sharded_filter._full(steady, name, mesh, "space").cpu()
+              for name in ("cov_inf", "L21", "Sl", "Sl_inv")}
+    blocks["err_vec"] = steady.local.err_vec.cpu()
+    placed = sharded_filter.shard_steady_cache(steady, mesh)
+    layouts = {name: placed.layouts[name].spec for name in ("cov_inf", "L21", "Sl_inv")}
+    solve = sharded_filter.make_space_sharded_steady_solve(
+        cache=cache, steady=placed, num_derivatives=NU, mesh=mesh, dt=STEADY_DT,
+        num_steps=STEADY_STEPS)
+    mesh.reset_counts()
+    (mean, diff), solve_s = timed_sync(lambda: solve(mean0, float(heat.t0)))
+    lines.append(f"E2 sharded mean-only solve: {STEADY_STEPS / solve_s:.1f} steps/s over "
+                 f"{STEADY_STEPS} steps, layouts {layouts}, staged "
+                 f"{mesh.staged_bytes / 2**20:.1f} MiB")
+    del cache, steady, placed, C0
+
+    sweep = payload["sweep"]
+    batch = meshes.make_mesh(2, batch=2)
+    caches = [pt.white.SteadyStateCache(**{k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                                           for k, v in c.items()}) for c in sweep["steadies"]]
+    (means, _, diffs), sweep_s = timed_sync(lambda: ensembles.steady_dt_sweep_final_states(
+        cache=pt.white.WhiteSolverCache(*(x.to(dev) for x in sweep["cache"])),
+        num_derivatives=NU, mean0=sweep["mean0"].to(dev), t0=0.0, tmax=STEADY_SWEEP_TMAX,
+        dts=STEADY_SWEEP_DTS, steady_caches=ensembles.stack_caches(caches), mesh=batch))
+    lines.append(f"E2 frozen-gain dt sweep over the batch axis ({len(STEADY_SWEEP_DTS)} dts): "
+                 f"{sweep_s:.3f} s")
+    counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    return dict(lines=lines, blocks=blocks, mean0=mean0.cpu(), mean=mean.cpu(),
+                diff=float(diff), means=means.cpu(), diffs=diffs.cpu(), launches=counts)
+
+
+def phase_sharded_steady_gloo(pt, dev, launches, card_line, steady_ref):
+    """E2. Two gloo ranks sharing the card at phase E's point: the seeded
+    sharded steady state held to phase E's cache (kernel path), the Gram of
+    cov_inf at STEADY_RTOL/STEADY_ATOL and the mean after 512 frozen steps
+    at STEADY_TRAJECTORY_RTOL (the gain printed), the 512-step sharded
+    mean-only solve held to the single-GPU frozen recursion from the same
+    blocks (1e-10), and the
+    frozen-gain sweep over STEADY_SWEEP_DTS held to sequential single-GPU
+    steady solves (1e-10 in the mean, 1e-9 in the diffusion). The gloo
+    numbers are host-bound (PERF.md section 5): printed, not gated."""
+    from pnmol_tpu_torch.parallel import distributed
+
+    import chip_smoke
+
+    heat = dx_adapted_heat(pt, dev, N_POINTS, STEADY_STEPS, dt=STEADY_DT)
+    sweep_heat = dx_adapted_heat(pt, dev, N_POINTS, 1, dt=STEADY_SWEEP_TMAX)
+    launches.reset()
+    finals, steadies = [], []
+    for dt in STEADY_SWEEP_DTS:
+        solver = pt.white.LinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(dt), num_derivatives=NU, spatial_kernel=prior(pt),
+            steady_state=True)
+        finals.append(solver.simulate_final_state(sweep_heat)[0])
+        steadies.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                         for k, v in solver.steady_cache._asdict().items()})
+    mean0 = solver.initialize(sweep_heat).y.mean
+    launches.read("E2 sequential steady solves, plain path", {})
+    payload = dict(sweep=dict(cache=[x.cpu() for x in solver._cache], mean0=mean0.cpu(),
+                              steadies=steadies))
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_ranks(chip_smoke.sharded_steady_gloo_rank, 2, backend="gloo",
+                                    device="cuda:0", payload=payload, timeout=900)
+    elapsed = time.perf_counter() - t0
+    launches.read("E2 two gloo ranks: this process", {})
+    for got, _ in ranks:
+        for line in got["lines"]:
+            print(f"{line} [{card_line}]", flush=True)
+    print(f"E2: {elapsed:.1f} s with the ranks' start", flush=True)
+    add_rank_launches("E2 two gloo ranks (no kernel on the sharded path)", launches,
+                      [got for got, _ in ranks], dict.fromkeys(SOURCES, 0))
+    got = ranks[0][0]
+    b = {k: v.to(dev) for k, v in got["blocks"].items()}
+    solver_ref = steady_ref["solver"]
+    ref = solver_ref.steady_cache
+    gram = compare_blocks((b["cov_inf"], b["cov_inf"].T), (ref.cov_inf, ref.cov_inf.T))
+    gain = compare_blocks(b["L21"] @ b["Sl_inv"], ref.L21 @ ref.Sl_inv)
+    sxz = rel(b["L21"] @ b["Sl"].T, ref.L21 @ ref.Sl.T)
+    trajectory = rel(got["mean"].to(dev), steady_ref["mean"])
+    frozen = pt.white.SteadyStateCache(cov_inf=b["cov_inf"], L21=b["L21"], Sl=b["Sl"],
+                                       Sl_inv=b["Sl_inv"], err_vec=b["err_vec"], iterations=0,
+                                       delta=0.0)
+    step = pt.white.make_steady_state_white_step(cache=solver_ref._cache, steady=frozen,
+                                                 num_derivatives=NU)
+    m_ref, diff_sum = got["mean0"].to(dev), 0.0
+    for k in range(1, STEADY_STEPS + 1):
+        m_ref, _, _, _, dsq = step(m_ref, None, k * STEADY_DT, STEADY_DT)
+        diff_sum += dsq.item()
+    solve_rel = rel(got["mean"].to(dev), m_ref)
+    diff_rel = abs(got["diff"] / (diff_sum / STEADY_STEPS) - 1)
+    worst = dict(mean=0.0, diff=0.0)
+    for i, final in enumerate(finals):
+        worst["mean"] = max(worst["mean"], (got["means"][i].to(dev) - final.y.mean).abs().max()
+                            .item())
+        worst["diff"] = max(worst["diff"], abs(got["diffs"][i].item()
+                                               / final.diffusion_squared_local.item() - 1))
+    print(f"E2 against phase E's cache: cov_inf Gram max abs {gram[0]:.3e} (rel {gram[1]:.3e}, "
+          f"max {gram[2]:.4e}; excess over rtol {STEADY_RTOL:g}, atol {STEADY_ATOL:g}: "
+          f"{gram[3]:.4e}); S_xz rel {sxz:.3e}; the mean "
+          f"after {STEADY_STEPS} frozen steps rel {trajectory:.3e} against phase E's (held to "
+          f"{STEADY_TRAJECTORY_RTOL[N_POINTS]:g}); gain L21 Sl^-1 rel {gain[1]:.3e}, max |K| "
+          f"{gain[2]:.4e}, excess over rtol {STEADY_RTOL:g}, atol {STEADY_ATOL:g}: "
+          f"{gain[3]:.4e} (not held); the sharded solve against the single-GPU frozen "
+          f"recursion from the same blocks: mean rel {solve_rel:.3e}, diffusion rel "
+          f"{diff_rel:.3e}; the sweep against {len(finals)} sequential steady solves: mean max "
+          f"abs {worst['mean']:.3e}, diffusion rel {worst['diff']:.3e} [{card_line}]", flush=True)
+    check(trajectory <= STEADY_TRAJECTORY_RTOL[N_POINTS],
+          "E2: the frozen trajectory leaves phase E's")
+    check(gram[3] <= 0.0, "E2: the cov_inf Gram leaves phase E's")
+    check(all(np.array_equal(r["mean"].numpy(), got["mean"].numpy()) for r, _ in ranks),
+          "E2: the ranks' means differ")
+    check(solve_rel <= 1e-10 and diff_rel <= 1e-10,
+          "E2: the sharded solve leaves the frozen recursion")
+    check(worst["mean"] <= 1e-10 and worst["diff"] <= 1e-9,
+          "E2: the sweep and the sequential steady solves disagree")
+
+
+def phase_utilities(pt, dev, launches, card_line, heat):
+    """O. The utilities on phase 5's panel-kernel path: ``solve_resilient``
+    with one NaN injected at step 10 (one restart from the step-5
+    checkpoint at dt / 2, then a finite finish at tmax); a checkpoint round
+    trip of the card's state (device kept, bitwise equal); the phase
+    seconds of ``initialize`` under ``PNMOL_INIT_PROFILE=1``; and
+    ``time_blocked`` of one step."""
+    import tempfile
+
+    from pnmol_tpu_torch.utils import checkpoint, profiling, resilience
+
+    solver = heat_solver(pt, "householder", steprule=pt.odetools.step.Constant(DT))
+    attempt = solver.attempt_step
+    armed = {"on": True}
+
+    def flaky(state, dt, pde, t_next=None):
+        new_state, info = attempt(state, dt, pde, t_next)
+        if armed["on"] and state.t >= (RESILIENT_NAN_STEP - 1.5) * DT:
+            armed["on"] = False
+            return new_state._replace(y=new_state.y._replace(
+                mean=new_state.y.mean * float("nan"))), info
+        return new_state, info
+
+    solver.attempt_step = flaky
+    with tempfile.TemporaryDirectory(prefix="pnmol_checkpoints_") as tmp:
+        launches.reset()
+        (final, report), seconds = timed_sync(lambda: resilience.solve_resilient(
+            solver, heat, checkpoint_dir=tmp, checkpoint_every=RESILIENT_CHECKPOINT_EVERY))
+        attempts = report.num_steps + report.num_failures
+        launches.read(f"O resilient solve ({attempts} attempts)",
+                      {"panel_lq": 13 + 17 * attempts})
+        print(f"O solve_resilient, NaN at step {RESILIENT_NAN_STEP}: {report} in {seconds:.3f} s,"
+              f" t = {final.t:.12g} [{card_line}]", flush=True)
+        check(report.num_failures == 1 and report.num_restarts == 1, "O: not one restart")
+        check(report.final_dt == DT / 2 and abs(final.t - heat.tmax) <= 1e-12,
+              "O: the restart's dt or the final time")
+        restart_steps = round((heat.tmax - RESILIENT_CHECKPOINT_EVERY * DT) / (DT / 2))
+        check(report.num_steps == RESILIENT_NAN_STEP - 1 + restart_steps,
+              f"O: {report.num_steps} accepted steps")
+        check(bool(torch.isfinite(final.y.mean).all() and torch.isfinite(final.y.cov_sqrtm).all()),
+              "O: the resilient trajectory is not finite")
+
+        path = pathlib.Path(tmp) / "state"
+        checkpoint.save_state(path, final, extra={"dt": torch.tensor(report.final_dt,
+                                                                      dtype=torch.float64)})
+        restored, extra = checkpoint.load_state(path, device=dev)
+        same = (restored.t == final.t and all(
+            a.device == b.device and torch.equal(a, b) for a, b in (
+                (restored.y.mean, final.y.mean), (restored.y.cov_sqrtm, final.y.cov_sqrtm),
+                (restored.diffusion_squared_local, final.diffusion_squared_local))))
+        print(f"O checkpoint round trip of the card's state: device {restored.y.mean.device}, "
+              f"bitwise equal {same}, extra dt {float(extra['dt'])}", flush=True)
+        check(same, "O: the checkpoint round trip changed the state or its device")
+
+    solver = heat_solver(pt, "householder", steprule=pt.odetools.step.Constant(DT))
+    launches.reset()
+    with environ(PNMOL_INIT_PROFILE="1"):
+        state = solver.initialize(heat)
+    out, step_s = profiling.time_blocked(solver._step_fn, state.y.mean, state.y.cov_sqrtm, DT,
+                                         DT, repeats=5)
+    launches.read("O init_profile and time_blocked (1 + 6 steps)", {"panel_lq": 13 + 17 * 6})
+    print(f"O init_profile of phase 5's initialize: {solver.init_profile}; time_blocked of one "
+          f"step: {step_s * 1e3:.3f} ms (best of 5) [{card_line}]", flush=True)
+    check(set(solver.init_profile) == {"prior_gram_cholesky_y0", "measure_assembly",
+                                       "init_update_qr", "aux_Ql_Ebc"},
+          "O: init_profile's phases")
+    check(bool(torch.isfinite(out[0]).all()), "O: NaN or inf in the timed step")
+
+
 def phase_build(cuda_build):
     """One nvcc per source, all started together."""
     def timed(name):
@@ -2374,7 +2924,9 @@ def main():
                  "the panel kernel")
     phase_golden(pt, dev, launches, white, "white", tq.make_householder_factorization(),
                  {"leaf_qr": 5}, "the R-form hook (leaf kernel)")
+    phase_gradients(pt, tq, dev, launches, card_line)
     heat, plain, pnmol = phase_full_width(pt, dev, launches, card_line)
+    phase_utilities(pt, dev, launches, card_line, heat)
     phase_collocation(pt, dev, launches, card_line)
     phase_r_form(pt, tq, launches, heat, plain, card_line)
     phase_golden(pt, dev, launches, latent, "latent", "householder", {"panel_lq": 6},
@@ -2392,8 +2944,11 @@ def main():
     phase_smoothing(pt, dev, launches, card_line)
     phase_figure4(pt, dev, launches, card_line)
     phase_mle(pt, tgram, dev, launches, card_line)
-    phase_steady(pt, dev, launches, card_line)
-    phase_steady_large(pt, dev, launches, card_line)
+    steady = phase_steady(pt, dev, launches, card_line)
+    phase_sharded_steady_gloo(pt, dev, launches, card_line, steady)
+    del steady
+    phase_sharded_steady_large(pt, dev, launches, card_line,
+                               phase_steady_large(pt, dev, launches, card_line))
     phase_heat_2d(pt, tgram, dev, launches, card_line)
     phase_advection_3d(pt, dev, launches, card_line)
     phase_nd_small(pt, dev, launches, card_line)

@@ -36,7 +36,10 @@ layout, spread over the SMs by the same rule.
 On a CPU tensor :func:`panel_lq`, :func:`leaf_lq` and :func:`leaf_qr` run
 their plain PyTorch versions :func:`panel_lq_reference` and
 :func:`leaf_qr_reference`; on a CUDA tensor they launch the panel kernel
-(built with ``nvcc`` from ``csrc/panel_lq.cu`` at first use) or raise.
+(built with ``nvcc`` from ``csrc/panel_lq.cu`` at first use) or raise. The
+kernel has no backward (nor have the TPU kernels a VJP): where autograd
+records through a slab, all three raise on either device, naming the plain
+factorization that differentiates.
 """
 
 import ctypes
@@ -160,14 +163,26 @@ def panel_lq_launch(rows, cols, itemsize, num_sms):
     return panel_lq_geometry(rows, cols, min(ctas, num_sms - 1), itemsize)
 
 
+def _no_backward(name, slab):
+    """Raise where autograd records through ``slab``: the kernel routes have
+    no backward."""
+    if torch.is_grad_enabled() and slab.requires_grad:
+        raise RuntimeError(
+            f"{name}: the CUDA panel kernel has no backward; for gradients take the "
+            "plain factorization (factorization=None: torch.linalg.qr)"
+        )
+
+
 def panel_lq(slab, off):
     """Householder LQ of one wide panel (see :func:`panel_lq_reference`).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel of
     ``csrc/panel_lq.cu`` on the current stream (no synchronization), with
     the shape of :func:`panel_lq_launch`, and add one to
-    ``panel_lq.launches``; anything the kernel does not take raises.
+    ``panel_lq.launches``; anything the kernel does not take raises, and so
+    does a slab that autograd records through.
     """
+    _no_backward("panel_lq", slab)
     if slab.device.type == "cpu":
         return panel_lq_reference(slab, off)
     _check_panel(slab, off)
@@ -237,8 +252,10 @@ def leaf_lq(slab, off):
     ``_leaf_lq_kernel``), launched with the shape of
     :func:`panel_lq_launch`, but counted apart: a CUDA launch adds one to
     ``leaf_lq.launches`` and never to ``panel_lq.launches``. CPU tensors take
-    the plain version; anything the kernel does not take raises.
+    the plain version; anything the kernel does not take raises, and so does
+    a slab that autograd records through.
     """
+    _no_backward("leaf_lq", slab)
     if slab.device.type == "cpu":
         return panel_lq_reference(slab, off)
     _check_panel(slab, off)
@@ -536,8 +553,9 @@ def leaf_qr(slab):
     synchronization), with the shape of :func:`leaf_qr_launch`, and add one
     to ``leaf_qr.launches`` (never to ``panel_lq.launches``); the kernel
     takes 1 <= leaf <= 128 columns and rows >= leaf, and anything else
-    raises.
+    raises, as does a slab that autograd records through.
     """
+    _no_backward("leaf_qr", slab)
     if slab.device.type == "cpu":
         return leaf_qr_reference(slab)
     _check_leaf(slab)

@@ -15,8 +15,13 @@ import torch
 
 
 def triu_qr(mat):
-    """Upper triangular factor of a QR decomposition, shape (min(M,N), N)."""
-    return torch.linalg.qr(mat, mode="r")[1]
+    """Upper triangular factor of a QR decomposition, shape (min(M,N), N).
+
+    ``mode="r"`` skips Q, but torch has no backward for it: where autograd
+    records through ``mat`` the reduced QR runs instead (the same R), so
+    runs without gradients keep the cheaper mode."""
+    mode = "reduced" if torch.is_grad_enabled() and mat.requires_grad else "r"
+    return torch.linalg.qr(mat, mode=mode)[1]
 
 
 def sqrtm_to_cholesky(St):

@@ -1,6 +1,6 @@
 """The space-sharded tier over ``torch.distributed`` (explicit SPMD).
 
-Counterpart of :mod:`pnmol_tpu.parallel` without its steady-state half.
+Counterpart of :mod:`pnmol_tpu.parallel`, its steady-state half included.
 The JAX tier is written for GSPMD: it gives arrays a sharding and lets XLA
 insert the collectives, with only the panel factorizations written as
 ``shard_map`` bodies. PyTorch has no GSPMD, so here every rank is one
@@ -32,18 +32,22 @@ every collective:
   ``with_sharding_constraint`` and the virtual CPU devices.
 
 Modules: :mod:`meshes`, :mod:`distributed` (process group, rank launcher),
-:mod:`sharded_linalg`, :mod:`sharded_filter` (steps and solves),
-:mod:`sharded_init` (distributed initialization) and :mod:`ensembles`.
+:mod:`sharded_linalg`, :mod:`sharded_filter` (steps and solves, and the
+steady tier: the sharded Riccati convergence, the placement of the frozen
+blocks and the mean-only solve), :mod:`sharded_dare` (the row-sharded
+doubling seed), :mod:`sharded_init` (distributed initialization) and
+:mod:`ensembles` (batched steps, the dt sweep and its frozen-gain form).
 """
 
 from pnmol_tpu_torch.parallel import (
     distributed,
     ensembles,
     meshes,
+    sharded_dare,
     sharded_filter,
     sharded_init,
     sharded_linalg,
 )
 
-__all__ = ["distributed", "ensembles", "meshes", "sharded_filter", "sharded_init",
-           "sharded_linalg"]
+__all__ = ["distributed", "ensembles", "meshes", "sharded_dare", "sharded_filter",
+           "sharded_init", "sharded_linalg"]

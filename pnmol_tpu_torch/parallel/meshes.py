@@ -203,9 +203,9 @@ class Mesh:
         if group is None:
             return x[None].clone()
         buf = self._staged(x.contiguous())
-        out = [torch.empty_like(buf) for _ in range(self.shape[axis])]
-        dist.all_gather(out, buf, group=group)
-        return self._unstaged(torch.stack(out), x)
+        stacked = buf.new_empty((self.shape[axis],) + tuple(buf.shape))
+        dist.all_gather(list(stacked.unbind(0)), buf, group=group)
+        return self._unstaged(stacked, x)
 
     def ppermute(self, x, axis="space", shift=1, *, region="schedule"):
         """Send ``x`` to the rank ``shift`` places on along ``axis`` (a ring)
@@ -279,6 +279,8 @@ class Mesh:
         if pad:
             x = torch.cat((x, x.new_zeros((pad,) + tuple(x.shape[1:]))))
         stacked = self.all_gather(x, axis, region=region)
+        if len(sizes) == 1:
+            return stacked[0, :sizes[0]]
         return torch.cat([stacked[q, :s] for q, s in enumerate(sizes)])
 
     def reshard_rows(self, x, src, dst, axis="space", *, region="layout"):

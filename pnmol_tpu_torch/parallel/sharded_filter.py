@@ -1,8 +1,8 @@
 """Space-sharded single-instance filter steps and solves (the large-N tier).
 
-Counterpart of the non-steady half of :mod:`pnmol_tpu.parallel.sharded_filter`
-as explicit SPMD: each rank holds its block of the covariance factor and of
-the cache, the mean is replicated, and the collectives are named.
+Counterpart of :mod:`pnmol_tpu.parallel.sharded_filter` as explicit SPMD:
+each rank holds its block of the covariance factor and of the cache, the
+mean is replicated, and the collectives are named.
 
 * ``distributed_qr=False``: the factor (and ``Ql``) is ROW-sharded and
   gathered for one local fused step, the collective GSPMD inserts for that
@@ -18,9 +18,15 @@ the cache, the mean is replicated, and the collectives are named.
   the ring matmul for the operator products and the row-sharded innovation
   whitening.
 
+The steady tier converges the Riccati recursion on column blocks through
+the distributed factorization (seeded by the row-sharded doubling of
+:mod:`pnmol_tpu_torch.parallel.sharded_dare`), places the frozen blocks in
+row blocks and steps the mean only.
+
 The steps are built from the single-device step's pieces
 (:mod:`pnmol_tpu_torch.solvers.white`); the single-device
-``white_attempt_step`` and ``latent_attempt_step`` are unchanged. Hooks take
+``white_attempt_step`` and ``latent_attempt_step`` are unchanged (the
+steady convergence takes one more argument, ``row_sums``). Hooks take
 local blocks: the operators enter ``operator_matmul`` as the rank's row block,
 the measurement-noise factor enters every hook as the rank's column block.
 """
@@ -452,5 +458,190 @@ def make_space_sharded_adaptive_solve(*, cache, num_derivatives, mesh, steprule,
             n_attempts += 1
         diffusion_sq = diff_sum / max(n_steps, 1)
         return t, mean, cov * torch.sqrt(diffusion_sq), diffusion_sq, n_steps, n_attempts
+
+    return solve
+
+
+# ---------------------------------------------------------------------------
+# The steady tier: the sharded Riccati convergence and the mean-only solve
+# ---------------------------------------------------------------------------
+
+
+def _tiles(n, mesh, axis):
+    return n % mesh.shape[axis] == 0
+
+
+def _steady_layouts(shapes, mesh, axis, cov):
+    """The placement plan of the frozen blocks: ``cov_inf`` in ``cov``,
+    ``L21`` and ``Sl_inv`` row-sharded where their leading dimension tiles
+    the mesh, the rest replicated."""
+    layouts = dict.fromkeys(white_module.SteadyStateCache._fields, meshes.replicated())
+    layouts["cov_inf"] = cov
+    for name in ("L21", "Sl_inv"):
+        if _tiles(shapes[name][0], mesh, axis):
+            layouts[name] = meshes.space_sharding(rank=2)
+    return layouts
+
+
+def converge_space_sharded_steady_state(*, cache, cov0, dt, num_derivatives, mesh, latent=False,
+                                        panel_size=None, tol=None, max_iters=200,
+                                        meascov_dt_scaled=False, dtype=None, chunk_iters=None,
+                                        seed=None, diagnostics=None, axis="space"):
+    """Riccati fixed point of the sharded step (linear problems, constant
+    dt): the steady-state convergence with the pre-array factorized by the
+    distributed panel QR (:func:`make_distributed_factorization`), the
+    factor column-sharded throughout.
+
+    ``cache`` comes from :func:`shard_cache` with ``distributed_qr=True``;
+    ``cov0`` is this rank's columns of the initial factor. Each chunk of
+    ``chunk_iters`` iterations (all ``max_iters`` by default) is one call of
+    the single-device convergence (``converge_white_steady_state`` or
+    ``converge_latent_steady_state``) on the rank's column blocks, its Gram
+    diagonals summed over the ranks; convergence is checked between chunks.
+    Each chunk ends with one more step (its frozen blocks), which the next
+    chunk starts from: that seam step counts, the last chunk's does not, as
+    in the JAX tier. ``seed`` (default on for the white solver, off for the
+    latent one) starts from :func:`~pnmol_tpu_torch.parallel.sharded_dare.
+    sharded_steady_seed` (its ``info`` merged into ``diagnostics``), so the
+    recursion only polishes. ``dtype`` (e.g. ``"float64"`` on an f32
+    problem) runs the seed and the recursion in that type, the distributed
+    factorization kept, and casts the blocks back.
+
+    Returns a :class:`ShardedCache` of a
+    :class:`~pnmol_tpu_torch.solvers.white.SteadyStateCache`: ``cov_inf``
+    column-sharded, ``L21`` and ``Sl_inv`` row-sharded where their leading
+    dimension tiles the mesh, the rest replicated.
+    """
+    from pnmol_tpu_torch.parallel import sharded_dare
+
+    if not isinstance(cache, ShardedCache) or cache.layouts["Ql"] != cov_layout(True):
+        raise TypeError("place the cache with shard_cache(distributed_qr=True) first")
+    if max_iters < 1:
+        raise ValueError(f"max_iters must be at least 1, got {max_iters}")
+    out_dtype = cov0.dtype
+    promote = dtype is not None and white_module._torch_dtype(dtype) != out_dtype
+    if promote:
+        ric_dtype = white_module._torch_dtype(dtype)
+        cache = cache._replace(local=type(cache.local)(*(x.to(ric_dtype) for x in cache.local)))
+        cov0 = cov0.to(ric_dtype)
+    # the rank's view of the cache: Ql (and the white noise factor) its
+    # columns, the operators whole
+    local = cache.local._replace(L=_full(cache, "L", mesh, axis), B=_full(cache, "B", mesh, axis))
+    if latent:
+        converge, kwargs = latent_module.converge_latent_steady_state, {}
+    else:
+        local = local._replace(E_bc_sqrtm=_columns(cache, "E_bc_sqrtm", mesh, axis))
+        converge = white_module.converge_white_steady_state
+        kwargs = {"meascov_dt_scaled": meascov_dt_scaled}
+    if seed is None:
+        seed = not latent
+    if seed and not latent:
+        cov0, seed_info = sharded_dare.sharded_steady_seed(
+            cache, dt, mesh, num_derivatives=num_derivatives, axis=axis,
+            meascov_dt_scaled=meascov_dt_scaled, panel_size=panel_size)
+        if diagnostics is not None:
+            diagnostics.update(seed_info)
+    if tol is None:
+        tol = 1e-8 if cov0.dtype == torch.float64 else 1e-5
+    chunk = min(chunk_iters or max_iters, max_iters)
+    factorization = make_distributed_factorization(mesh=mesh, axis=axis, panel_size=panel_size)
+
+    def row_sums(x):
+        return mesh.psum(x, axis, region="layout")
+
+    total, delta, C_cur, chunks = 0, float("inf"), cov0, 0
+    while total < max_iters and (chunks == 0 or delta >= tol):
+        steady = converge(local, C_cur, dt, num_derivatives=num_derivatives, fused=True,
+                          factorization=factorization, tol=tol, max_iters=chunk,
+                          row_sums=row_sums, **kwargs)
+        C_cur, delta = steady.cov_inf, steady.delta
+        chunks += 1
+        total += steady.iterations + 1
+    steady = steady._replace(iterations=total - 1)
+    if promote:
+        steady = steady._replace(**{k: v.to(out_dtype) for k, v in steady._asdict().items()
+                                    if isinstance(v, torch.Tensor)})
+    shapes = {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else None)
+              for k, v in steady._asdict().items()}
+    D = shapes["cov_inf"][0]
+    shapes["cov_inf"] = (D, D)
+    layouts = _steady_layouts(shapes, mesh, axis, cov_layout(True))
+    placed = steady._replace(**{k: mesh.shard(getattr(steady, k), layouts[k])
+                                for k in ("L21", "Sl_inv")})
+    return ShardedCache(local=placed, layouts=layouts, shapes=shapes)
+
+
+def shard_steady_cache(steady, mesh, axis="space"):
+    """Place frozen stationary blocks for the mean-only solve: ``cov_inf``,
+    the (D, m) gain block ``L21`` and the (m, m) whitener ``Sl_inv``
+    row-sharded where their leading dimension tiles the mesh (their matvecs
+    are row-independent; the products are gathered), the rest replicated.
+
+    ``steady`` is a single-device
+    :class:`~pnmol_tpu_torch.solvers.white.SteadyStateCache` or the
+    :class:`ShardedCache` of :func:`converge_space_sharded_steady_state`,
+    whose column-sharded ``cov_inf`` moves to row blocks (an all-to-all).
+    """
+    if isinstance(steady, ShardedCache):
+        D = steady.shapes["cov_inf"][0]
+        cols = steady.local.cov_inf
+        if _tiles(D, mesh, axis):
+            cov_inf = mesh.transpose_rows(cols.T.contiguous(), (D, D), axis)
+        else:
+            cov_inf = _full(steady, "cov_inf", mesh, axis)
+        layouts = dict(steady.layouts, cov_inf=(meshes.space_sharding(rank=2)
+                                                if _tiles(D, mesh, axis) else meshes.replicated()))
+        return steady._replace(local=steady.local._replace(cov_inf=cov_inf), layouts=layouts)
+    shapes = {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else None)
+              for k, v in steady._asdict().items()}
+    cov = meshes.space_sharding(rank=2) if _tiles(shapes["cov_inf"][0], mesh, axis) \
+        else meshes.replicated()
+    layouts = _steady_layouts(shapes, mesh, axis, cov)
+    local = steady._replace(**{k: mesh.shard(getattr(steady, k), layouts[k])
+                               for k in ("cov_inf", "L21", "Sl_inv")})
+    return ShardedCache(local=local, layouts=layouts, shapes=shapes)
+
+
+class _RowBlocks:
+    """A row-sharded matrix as the mean-only step reads it: ``M @ v`` is
+    the rank's rows times ``v``, gathered (the all-gather GSPMD inserts for
+    the whitened residual and the gain's correction)."""
+
+    def __init__(self, local, rows, mesh, axis):
+        self.local, self.mesh, self.axis = local, mesh, axis
+        self.sizes = meshes.block_sizes(rows, mesh.shape[axis])
+        self.dtype, self.device = local.dtype, local.device
+
+    def __matmul__(self, v):
+        return self.mesh.gather_rows(self.local @ v, self.sizes, self.axis)
+
+
+def make_space_sharded_steady_solve(*, cache, steady, num_derivatives, mesh, dt, num_steps,
+                                    latent=False, axis="space"):
+    """Space-sharded mean-only steady-state solve: ``num_steps`` steps of
+    the frozen-gain step of ``make_steady_state_white_step`` (or
+    ``make_steady_state_latent_step``) with ``L21`` and ``Sl_inv`` as the
+    rank's row blocks, the whitened residual and the correction gathered,
+    the mean replicated; no factorization, O(D m / P) work a rank a step.
+
+    ``cache`` is the step cache's :class:`ShardedCache`, ``steady`` the
+    blocks placed by :func:`shard_steady_cache`. Returns ``solve(mean0, t0)
+    -> (mean, diffusion_sq)``, the diffusion the mean of the steps' local
+    ones; the covariance is the frozen ``cov_inf``, not carried.
+    """
+    make = (latent_module.make_steady_state_latent_step if latent
+            else white_module.make_steady_state_white_step)
+    local = cache.local._replace(L=_full(cache, "L", mesh, axis), B=_full(cache, "B", mesh, axis))
+    frozen = steady.local._replace(**{
+        name: _RowBlocks(getattr(steady.local, name), steady.shapes[name][0], mesh, axis)
+        for name in ("L21", "Sl_inv") if steady.layouts[name].spec[:1] == ("space",)})
+    step = make(cache=local, steady=frozen, num_derivatives=num_derivatives)
+
+    def solve(mean0, t0):
+        mean, diff_sum = mean0, mean0.new_zeros(())
+        for i in range(num_steps):
+            mean, _, _, _, diff_sq = step(mean, steady.local.cov_inf, t0 + (i + 1) * dt, dt)
+            diff_sum = diff_sum + diff_sq
+        return mean, diff_sum / num_steps
 
     return solve

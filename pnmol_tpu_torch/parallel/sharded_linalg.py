@@ -20,6 +20,7 @@ import torch
 
 from pnmol_tpu_torch import discretize as discretize_module
 from pnmol_tpu_torch import kernels as kernels_module
+from pnmol_tpu_torch.ops import sqrt
 from pnmol_tpu_torch.parallel import meshes
 
 
@@ -45,9 +46,9 @@ def tsqr_r(stacked, mesh, axis="space"):
             f"TSQR needs local rows ({rows}//{P}) >= cols ({cols}); "
             "use fewer shards or the dense path."
         )
-    r_local = torch.linalg.qr(stacked, mode="r")[1]
+    r_local = sqrt.triu_qr(stacked)
     gathered = mesh.all_gather(r_local, axis)  # (P, C, C)
-    return torch.linalg.qr(gathered.reshape(-1, cols), mode="r")[1]
+    return sqrt.triu_qr(gathered.reshape(-1, cols))
 
 
 def _cholqr(panel, jitter, mesh, axis):

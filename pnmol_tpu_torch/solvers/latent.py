@@ -17,12 +17,14 @@ seed (its DARE has no finite solution).
 """
 
 import functools
+import os
 from typing import NamedTuple
 
 import torch
 
 from pnmol_tpu_torch.ops import iwp, rv, stacked_ssm
 from pnmol_tpu_torch.solvers import pdefilter
+from pnmol_tpu_torch.utils import profiling
 from pnmol_tpu_torch.solvers.white import (
     FusedFactorizationFilter,
     _calibrate_and_update,
@@ -111,11 +113,11 @@ def latent_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
 def converge_latent_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=True,
                                  factorization=None, propagate_band=None, tol=1e-8,
-                                 max_iters=200, harvest=True):
+                                 max_iters=200, harvest=True, row_sums=None):
     """Iterate the latent step's covariance recursion (noise-free update) to
     its fixed point: the latent analog of
     :func:`pnmol_tpu_torch.solvers.white.converge_white_steady_state`, with
-    the same pipeline, stop rule and harvest."""
+    the same pipeline, stop rule, harvest and ``row_sums``."""
     n = num_derivatives + 1
     d = cache.L.shape[0]
     m_dim = d + cache.B.shape[0]
@@ -125,7 +127,7 @@ def converge_latent_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused
         cache, cov_sqrtm, dt, p, p_inv, _measurement_operator_latent(cache, cache.L, p, n, d),
         cov_sqrtm.new_zeros((m_dim, m_dim)), num_derivatives=num_derivatives, fused=fused,
         factorization=factorization, propagate_band=propagate_band, tol=tol,
-        max_iters=max_iters, harvest=harvest,
+        max_iters=max_iters, harvest=harvest, row_sums=row_sums,
     )
 
 
@@ -209,6 +211,8 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
 
     def initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
+        # PNMOL_INIT_PROFILE=1 -> self.init_profile (see the white solvers)
+        mark = profiling.PhaseTimer(os.environ.get("PNMOL_INIT_PROFILE") == "1")
         # hooks sized for the stacked dimension: the latent pre-array is the
         # white one at 2d points
         update_blocks = self._init_update_blocks(d, 2 * d)
@@ -222,7 +226,7 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         gram = self.spatial_kernel(X, X.T)
         chol_gram = torch.linalg.cholesky(gram)
         u0, y0_blocks = structured_init_y0(gram, chol_gram, pde.y0, s, nugget, n)
-        C00 = y0_blocks[0]
+        C00 = mark("prior_gram_cholesky_y0", y0_blocks[0])
 
         # [Measurement] stacked derivative-major factor blocks over the
         # (state | latent) points: derivative 0 = blockdiag(C00, s E), the
@@ -249,12 +253,13 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
             ),
             dim=0,
         )
-        nugget_pde = nugget * torch.eye(d + b_rows, dtype=u0.dtype, device=u0.device)
+        nugget_pde = mark("measure_assembly", nugget * torch.eye(d + b_rows, dtype=u0.dtype,
+                                                                 device=u0.device))
         u0_stack = torch.cat((u0, torch.zeros_like(u0)))
-        m0, C0 = reduced_init_pde_update(
+        m0, C0 = mark("init_update_qr", reduced_init_pde_update(
             [B0] + [B1] * (n - 1), HCsub, nugget_pde, z_pde, u0_stack, update_blocks
-        )
-        C0 = self._initial_factor(C0)
+        ))
+        C0 = self._initial_factor(C0, mark)
 
         # [Step cache] the stacked prior as one IWP over 2d points
         self.state_iwp = iwp.IntegratedWienerTransition(
@@ -267,10 +272,10 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         )
         self.ssm = stacked_ssm.StackedSSM(processes=[self.state_iwp, self.lf_iwp])
         merged = self.ssm.as_single_iwp()
-        self._cache = LatentSolverCache(
+        self._cache = mark("aux_Ql", LatentSolverCache(
             A1d=merged.preconditioned_discretize_1d[0], Ql=merged.process_noise_factor,
             L=L, B=B,
-        )
+        ))
         opts = self._steady_options()
         if opts is None:
             self._step_fn = functools.partial(
@@ -290,12 +295,13 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
                 num_derivatives=self.num_derivatives, fused=self.fused,
                 factorization=self.factorization, propagate_band=self.propagate_band,
             )
-            C0 = self.steady_cache.cov_inf
+            C0 = mark("steady_riccati", self.steady_cache).cov_inf
             self._step_fn = make_steady_state_latent_step(
                 cache=self._cache, steady=self.steady_cache,
                 num_derivatives=self.num_derivatives,
             )
 
+        self.init_profile = mark.profile
         # point-major glue: [state (n, d) | latent (n, d)] along the last axis
         m0_state, m0_latent = torch.chunk(m0, 2)
         mean0 = torch.cat(

@@ -21,6 +21,7 @@ materialized.
 """
 
 import functools
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -28,6 +29,7 @@ import torch
 from pnmol_tpu_torch.odetools import step as step_module
 from pnmol_tpu_torch.ops import dare, iwp, qr_householder, rv, sqrt
 from pnmol_tpu_torch.solvers import pdefilter
+from pnmol_tpu_torch.utils import debug, profiling
 
 
 class WhiteSolverCache(NamedTuple):
@@ -275,7 +277,8 @@ def _triangular_inverse(Sl):
 
 
 def _converge_steady_state(cache, cov_sqrtm, dt, p, p_inv, apply_H, E, *, num_derivatives,
-                           fused, factorization, propagate_band, tol, max_iters, harvest):
+                           fused, factorization, propagate_band, tol, max_iters, harvest,
+                           row_sums=None):
     """The covariance recursion of one step, iterated from ``cov_sqrtm``
     while ``it < max_iters and (it < 2 or delta >= tol)``, ``delta`` the
     relative change of the Gram diagonal. Each iteration is the step's own
@@ -283,7 +286,12 @@ def _converge_steady_state(cache, cov_sqrtm, dt, p, p_inv, apply_H, E, *, num_de
     with the measurement noise factor ``E``. ``harvest`` adds one more
     iteration from the last factor for the frozen blocks, the inverse
     innovation factor and the error-estimate base ``dt sqrt(diag(S))`` (row
-    norms of ``H Ql`` and ``E``); without it those fields are None."""
+    norms of ``H Ql`` and ``E``); without it those fields are None.
+
+    ``row_sums`` completes the row sums of squares of column blocks (the
+    Gram diagonal, ``diag(S)``): the identity by default, a sum over the
+    ranks when the factor, ``Ql`` and ``E`` are each rank's columns."""
+    row_sums = row_sums or (lambda x: x)
     n = num_derivatives + 1
     d = cache.L.shape[0]
     HQl = apply_H(cache.Ql)
@@ -298,10 +306,10 @@ def _converge_steady_state(cache, cov_sqrtm, dt, p, p_inv, apply_H, E, *, num_de
 
     tiny = torch.finfo(cov_sqrtm.dtype).tiny
     C, it, delta = cov_sqrtm, 0, float("inf")
-    diag = torch.einsum("ij,ij->i", C, C)
+    diag = row_sums(torch.einsum("ij,ij->i", C, C))
     while it < max_iters and (it < 2 or delta >= tol):
         C = cov_step(C)[0]
-        diag_new = torch.einsum("ij,ij->i", C, C)
+        diag_new = row_sums(torch.einsum("ij,ij->i", C, C))
         delta = ((diag_new - diag).abs().max() / (diag_new.max() + tiny)).item()
         diag = diag_new
         it += 1
@@ -309,14 +317,15 @@ def _converge_steady_state(cache, cov_sqrtm, dt, p, p_inv, apply_H, E, *, num_de
         return SteadyStateCache(cov_inf=C, L21=None, Sl=None, Sl_inv=None, err_vec=None,
                                 iterations=it, delta=delta)
     C_inf, L21, Sl = cov_step(C)
-    s_diag = torch.einsum("ij,ij->i", HQl, HQl) + torch.einsum("ij,ij->i", E, E)
+    s_diag = row_sums(torch.einsum("ij,ij->i", HQl, HQl) + torch.einsum("ij,ij->i", E, E))
     return SteadyStateCache(cov_inf=C_inf, L21=L21, Sl=Sl, Sl_inv=_triangular_inverse(Sl),
                             err_vec=dt * torch.sqrt(s_diag)[:d], iterations=it, delta=delta)
 
 
 def converge_white_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=True,
                                 factorization=None, propagate_band=None,
-                                meascov_dt_scaled=False, tol=1e-8, max_iters=200, harvest=True):
+                                meascov_dt_scaled=False, tol=1e-8, max_iters=200, harvest=True,
+                                row_sums=None):
     """Iterate the white step's covariance recursion to its fixed point.
 
     For linear problems at constant ``dt`` the measurement operator is
@@ -325,7 +334,8 @@ def converge_white_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=
     This runs that recursion through the step's own pipeline (the same QRs
     and hook) and returns a :class:`SteadyStateCache` with the frozen blocks
     of one more step from the converged factor (``harvest=False`` skips
-    them)."""
+    them). ``row_sums`` is :func:`_converge_steady_state`'s (column blocks
+    of a sharded factor)."""
     n = num_derivatives + 1
     p, p_inv = iwp.nordsieck_scales_1d(num_derivatives, dt, dtype=cov_sqrtm.dtype,
                                        device=cov_sqrtm.device)
@@ -333,7 +343,7 @@ def converge_white_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=
         cache, cov_sqrtm, dt, p, p_inv, _measurement_operator(cache, cache.L, p, n),
         _meascov_factor(cache, dt, meascov_dt_scaled), num_derivatives=num_derivatives,
         fused=fused, factorization=factorization, propagate_band=propagate_band, tol=tol,
-        max_iters=max_iters, harvest=harvest,
+        max_iters=max_iters, harvest=harvest, row_sums=row_sums,
     )
 
 
@@ -417,6 +427,7 @@ def sda_seed_from_dense(A, H, Q, R, p, *, meascov_sqrtm, residual_fn, bc_nugget=
     Wh = torch.linalg.solve_triangular(Lr, H, upper=False)
     del Lr
     G0 = Wh.T @ Wh
+    debug.dump_live_arrays("pre_sda")
     res = dare.sda(A, G0, Q, tol=tol, max_iters=max_iters)
     del G0
     residual = residual_fn(res.sigma, Wh)
@@ -522,6 +533,7 @@ def run_steady_convergence(converge_fn, cache, C0, dt0, opts, default_tol, seed_
     chunk = min(opts.get("chunk_iters", 2 if use_seed else (10 if promote else 50)), max_iters)
     tol = opts.get("tol", default_tol)
     if use_seed:
+        debug.dump_live_arrays("pre_seed")
         C0, seed_info = seed_fn(cache, dt0)
         if diagnostics is not None:
             diagnostics.update(seed_info)
@@ -626,14 +638,16 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
             return sqrt.update_sqrt_from_products_blocks
         return self._init_update.blocks
 
-    def _initial_factor(self, C0):
+    def _initial_factor(self, C0, mark):
         """The initial factor; for the interleaved propagate of the two-QR
         pipeline a lower-triangular one with its Gram (its precondition):
-        the hook's ``.tri``, else the transposed R of ``torch.linalg.qr(C0.T)``."""
+        the hook's ``.tri``, else the transposed R of ``torch.linalg.qr(C0.T)``,
+        timed by the phase timer ``mark``."""
         if self.propagate_band != "interleaved" or self.fused:
             return C0
         tri = getattr(self.factorization, "tri", None)
-        return tri(C0) if tri is not None else torch.linalg.qr(C0.T, mode="r")[1].T
+        return mark("interleave_retriangularize",
+                    tri(C0) if tri is not None else sqrt.triu_qr(C0.T).T)
 
     def _steady_options(self):
         """None when steady-state mode is off, else its options, after the
@@ -682,6 +696,9 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
 
     def initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
+        # PNMOL_INIT_PROFILE=1: synchronized seconds of each setup phase, in
+        # self.init_profile (the JAX package's phase names)
+        mark = profiling.PhaseTimer(os.environ.get("PNMOL_INIT_PROFILE") == "1")
         update_blocks = self._init_update_blocks(d, d)
         f = getattr(pde, "f", None)
         df = getattr(pde, "df", None)
@@ -695,7 +712,7 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         gram = self.spatial_kernel(X, X.T)
         chol_gram = torch.linalg.cholesky(gram)
         u0, y0_blocks = structured_init_y0(gram, chol_gram, y0, diffuse_scale, nugget, n)
-        C00 = y0_blocks[0]
+        C00 = mark("prior_gram_cholesky_y0", y0_blocks[0])
 
         # PDE measurement on the derivative-{0,1} sub-state. After the y0
         # update the mean is zero except on derivative 0, so the residual is
@@ -722,17 +739,17 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
             ),
             dim=0,
         )
-        E_bc_nugget = E_bc.clone()
+        E_bc_nugget = mark("measure_assembly", E_bc.clone())
         E_bc_nugget.diagonal().add_(nugget)
-        m0, C0 = reduced_init_pde_update(
+        m0, C0 = mark("init_update_qr", reduced_init_pde_update(
             [C00] + [B1] * (n - 1), HCsub, E_bc_nugget, z_pde, u0, update_blocks
-        )
+        ))
         del gram, y0_blocks, C00, B1, HCsub, E_bc_nugget  # not held through a steady seed
-        C0 = self._initial_factor(C0)
+        C0 = self._initial_factor(C0, mark)
 
-        self._cache = WhiteSolverCache(
+        self._cache = mark("aux_Ql_Ebc", WhiteSolverCache(
             A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
-        )
+        ))
         opts = self._steady_options()
         if opts is None:
             self._step_fn = functools.partial(
@@ -756,12 +773,13 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
                 fused=self.fused, factorization=self.factorization,
                 propagate_band=self.propagate_band, meascov_dt_scaled=self.meascov_dt_scaled,
             )
-            C0 = self.steady_cache.cov_inf
+            C0 = mark("steady_riccati", self.steady_cache).cov_inf
             self._step_fn = make_steady_state_white_step(
                 cache=self._cache, steady=self.steady_cache,
                 num_derivatives=self.num_derivatives,
             )
         self.iwp = trans
+        self.init_profile = mark.profile
         return pdefilter.PDEFilterState(
             t=float(pde.t0),
             y=rv.MultivariateNormal(mean=iwp.flat_to_mean(m0, n), cov_sqrtm=C0),

@@ -556,3 +556,115 @@ def test_sharded_step_on_the_card_matches_the_plain_step(cuda, backend, ranks, t
         # gloo stages every collective's CUDA operand through host memory
         assert (got["staged"] > 0) == (backend == "gloo")
         assert got["schedule"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("route", ["panel_lq", "leaf_lq", "leaf_qr"])
+def test_kernel_routes_raise_under_autograd_on_the_card(cuda, route):
+    """The kernel has no backward: a slab that autograd records through
+    raises before any launch, naming the plain factorization."""
+    slab = torch.tensor(np.random.default_rng(2).standard_normal((32, 600)), device=cuda,
+                        requires_grad=True)
+    calls = {"panel_lq": lambda x: tq.panel_lq(x, 0), "leaf_lq": lambda x: tq.leaf_lq(x, 0),
+             "leaf_qr": lambda x: tq.leaf_qr(x.T.contiguous())}
+    wrapper = getattr(tq, route)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no backward.*factorization=None"):
+        calls[route](slab)
+    assert wrapper.launches == before
+    with torch.no_grad():
+        calls[route](slab)
+    assert wrapper.launches == before + 1
+
+
+def _gradient(device, factorization=None):
+    heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.5, device=device)
+    solver = pt.white.LinearWhiteNoiseEK1(steprule=pt.odetools.step.Constant(0.1),
+                                          spatial_kernel=pt.kernels.Matern52()
+                                          + pt.kernels.WhiteNoise())
+    state = solver.initialize(heat)
+    base = heat.L / heat.diffop_scale
+    scale = torch.tensor(0.035, dtype=torch.float64, device=device, requires_grad=True)
+    cache = solver._cache._replace(L=scale * base)
+    mean, cov = state.y.mean, state.y.cov_sqrtm
+    for k in range(1, 6):
+        mean, cov, *_ = pt.white.white_attempt_step(cache, mean, cov, 0.1 * k, 0.1,
+                                                    num_derivatives=2,
+                                                    factorization=factorization)
+    return torch.autograd.grad((mean[0] ** 2).sum(), scale)[0].item()
+
+
+def test_gradient_through_plain_steps_on_the_card_matches_the_cpu(cuda):
+    """Gradients through 5 plain white steps on the card equal the CPU's;
+    through the Householder panel route they raise."""
+    g = _gradient(cuda)
+    assert abs(g - _gradient("cpu")) <= 1e-10 * abs(g)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _gradient(cuda, tq.make_householder_lq_factorization())
+
+
+def test_checkpoint_round_trip_keeps_the_card(cuda, tmp_path):
+    from pnmol_tpu_torch.utils import checkpoint
+
+    heat = pt.pde.examples.heat_1d_discretized(dx=0.2, tmax=0.3, device=cuda)
+    final, _ = pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(0.1)).simulate_final_state(heat)
+    checkpoint.save_state(tmp_path / "state", final)
+    restored, _ = checkpoint.load_state(tmp_path / "state", device=cuda)
+    assert restored.y.mean.device == final.y.mean.device
+    assert torch.equal(restored.y.mean, final.y.mean)
+    assert torch.equal(restored.y.cov_sqrtm, final.y.cov_sqrtm)
+
+
+def _sharded_steady_rank(payload, device):
+    """One NCCL rank: the seeded sharded steady state at N = 128 and 8
+    sharded mean-only steps, against the single-GPU steady mode."""
+    from pnmol_tpu_torch.parallel import distributed, sharded_filter
+
+    mesh = distributed.global_mesh(batch=1)
+    dx = 1.0 / 127
+    heat = pt.pde.examples.heat_1d_discretized(
+        dx=dx, tmax=0.08, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+        device=device)
+    solver = pt.white.LinearWhiteNoiseEK1(steprule=pt.odetools.step.Constant(1e-2),
+                                          steady_state=True)
+    state = solver.initialize(heat)
+    cache = sharded_filter.shard_cache(solver._cache, mesh, distributed_qr=True)
+    steady = sharded_filter.converge_space_sharded_steady_state(
+        cache=cache, cov0=state.y.cov_sqrtm, dt=1e-2, num_derivatives=2, mesh=mesh, max_iters=4)
+    placed = sharded_filter.shard_steady_cache(steady, mesh)
+    mean, _ = sharded_filter.make_space_sharded_steady_solve(
+        cache=cache, steady=placed, num_derivatives=2, mesh=mesh, dt=1e-2, num_steps=8)(
+        state.y.mean, 0.0)
+    step = pt.white.make_steady_state_white_step(cache=solver._cache, steady=placed.local,
+                                                 num_derivatives=2)
+    ref, got = solver.steady_cache, steady.local
+    frozen, full, cov = state.y.mean, state.y.mean, ref.cov_inf
+    for k in range(1, 9):
+        frozen = step(frozen, None, k * 1e-2, 1e-2)[0]
+        full, cov, *_ = pt.white.white_attempt_step(solver._cache, full, cov, k * 1e-2, 1e-2,
+                                                    num_derivatives=2)
+    final, _ = solver.simulate_final_state(heat)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    G, G_ref = got.cov_inf @ got.cov_inf.T, ref.cov_inf @ ref.cov_inf.T
+    return dict(device=str(mean.device), solve=rel(mean, frozen), trajectory=rel(mean, final.y.mean),
+                frozen_gap=rel(final.y.mean, full),
+                gram_excess=((G - G_ref).abs() - 1e-4 - 5e-3 * G_ref.abs()).max().item())
+
+
+def test_sharded_steady_state_on_the_card_matches_the_single_gpu(cuda):
+    """The sharded solve is the frozen recursion of its own blocks; against
+    the single-GPU steady mode, the Gram of cov_inf holds the JAX package's
+    tolerances (rtol 5e-3, atol 1e-4), and the frozen trajectory stays
+    closer than the single-GPU frozen gain's own gap to full steps seeded at
+    its cov_inf (the gain is not held: tests/torch_steady_gain_spread.py)."""
+    from pnmol_tpu_torch.parallel import distributed
+
+    (got, _), = distributed.spawn_ranks(_sharded_steady_rank, 1, backend="nccl",
+                                        device="cuda:0", timeout=600)
+    assert got["device"] == "cuda:0"
+    assert got["solve"] <= 1e-12
+    assert got["gram_excess"] <= 0.0
+    assert got["trajectory"] <= got["frozen_gap"]

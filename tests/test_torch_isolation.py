@@ -42,14 +42,17 @@ def test_no_jax_imports_in_source(path):
 
 # the modules of the adaptive, semilinear and latent-force slice, of the
 # large-N slice, of the MOL baseline and calibration slice, of
-# steady-state mode, of the n-D problems, and of the space-sharded tier
+# steady-state mode, of the n-D problems, of the space-sharded tier and its
+# steady half, and of the utilities
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
                  "odetools.reference_solver", "ops.kalman", "solvers.smoothing", "ops.dare",
                  "diffops", "mesh", "interop", "parallel", "parallel.meshes",
                  "parallel.distributed", "parallel.sharded_linalg", "parallel.sharded_filter",
-                 "parallel.sharded_init", "parallel.ensembles", "utils", "utils.comm_model")
+                 "parallel.sharded_init", "parallel.ensembles", "parallel.sharded_dare",
+                 "utils", "utils.comm_model", "utils.checkpoint", "utils.configs", "utils.debug",
+                 "utils.profiling", "utils.resilience")
 
 
 def test_the_slice_modules_are_checked():

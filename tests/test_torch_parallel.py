@@ -89,6 +89,20 @@ def setups():
             spatial_kernel=kernels.Matern52(input_scale=s) + kernels.WhiteNoise())
         members.append((solver, solver.initialize(heat4)))
     out["ensemble"] = members
+    heat15s = examples.heat_1d_discretized(dx=1.0 / 15, tmax=0.25)
+    for latent_mode in (False, True):
+        cls = latent.LinearLatentForceEK1 if latent_mode else white.LinearWhiteNoiseEK1
+        solver = cls(steprule=step_module.Constant(0.05), steady_state=True)
+        out[f"steady15_{latent_mode}"] = (heat15s, solver, solver.initialize(heat15s))
+    heat23 = examples.heat_1d_discretized(dx=1 / 23, tmax=1.0)
+    out["seeded23"] = (heat23,) + _white_setup(heat23, 0.01, steady_state=True)
+    steadies = []
+    for dt in SWEEP_DTS:
+        solver = white.LinearWhiteNoiseEK1(steprule=step_module.Constant(dt),
+                                           spatial_kernel=PRIOR, steady_state=True)
+        final, _ = solver.simulate_final_state(heat8)
+        steadies.append((solver, final))
+    out["steady_sweep"] = steadies
     out["grid32"] = mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=32)
     out["grid96"] = mesh.RectangularMesh.from_bbox_1d([0.0, 1.0], num=96)
     out["rule"] = step_module.Adaptive(abstol=1e-4, reltol=1e-2)
@@ -96,6 +110,23 @@ def setups():
 
 
 SWEEP_DTS = (0.5, 0.2, 0.09)
+
+
+def _steady_arrays(steady):
+    return {k: np.asarray(v) for k, v in steady._asdict().items()}
+
+
+def _sda_inputs():
+    """The (A, G, Q) of the JAX package's doubling test, numpy seed 3."""
+    rng = np.random.default_rng(3)
+    D = 24
+    M = rng.normal(size=(D, D))
+    A = 0.9 * M / np.max(np.abs(np.linalg.eigvals(M)))
+    Gh = rng.normal(size=(D, D))
+    G = Gh @ Gh.T / D + 0.1 * np.eye(D)
+    Qh = rng.normal(size=(D, D))
+    Q = Qh @ Qh.T / D + 0.1 * np.eye(D)
+    return dict(A=A, G=G, Q=Q)
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +143,14 @@ def port(setups):
         problem15=_problem_arrays(s["heat15"]),
         adaptive_dt0=float(s["rule"].first_dt(
             examples.heat_1d_discretized(dx=1.0 / 15, tmax=0.3))),
+        steady15_white=dict(_solver_arrays(*s["steady15_False"][1:]),
+                            steady=_steady_arrays(s["steady15_False"][1].steady_cache)),
+        steady15_latent=dict(_solver_arrays(*s["steady15_True"][1:]),
+                             steady=_steady_arrays(s["steady15_True"][1].steady_cache)),
+        seeded23=_solver_arrays(*s["seeded23"][1:]), sda=_sda_inputs(),
+        steady_sweep=_solver_arrays(s["steady_sweep"][0][0],
+                                    s["steady_sweep"][0][0].initialize(s["sweep"][0])),
+        sweep_steadies=[_steady_arrays(solver.steady_cache) for solver, _ in s["steady_sweep"]],
     )
     runs = distributed.spawn_ranks(torch_parallel_ranks.parallel_cases, 4, backend="gloo",
                                    device="cpu", payload=payload, timeout=600)
@@ -486,3 +525,118 @@ def test_ensemble_step_matches_sequential(port, setups, jax_mesh):
             assert np.allclose(_gram(got["cov"][i]), _gram(np.asarray(cov)), atol=1e-9)
             assert np.allclose(got["diff"][i], diff, rtol=0, atol=1e-10)
 
+
+
+# ---------------------------------------------------------------------------
+# the steady tier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("latent_mode", [False, True], ids=["white", "latent"])
+def test_space_sharded_steady_state_matches_single_device(port, setups, latent_mode):
+    """The sharded Riccati convergence (unseeded, from the converged state)
+    and the sharded mean-only solve against JAX's single-device steady mode:
+    the Grams of cov_inf and Sl to JAX's 1e-7, the 5-step mean to 1e-7 and
+    the diffusion to 1e-5 against the single-device frozen recursion; and
+    JAX's frozen blocks, placed by ``shard_steady_cache``, drive the sharded
+    solve to that recursion at 1e-10."""
+    heat, solver, state0 = setups[f"steady15_{latent_mode}"]
+    reference = solver.steady_cache
+    got = port[0][f"steady_{latent_mode}"]
+    assert np.allclose(_gram(got["cov_inf"]), _gram(np.asarray(reference.cov_inf)), atol=1e-7)
+    assert np.allclose(_gram(got["Sl"]), _gram(np.asarray(reference.Sl)), atol=1e-7)
+    D = got["cov_inf"].shape[0]
+    assert all(r[f"steady_{latent_mode}"]["local_cov"] == (D, D // 4) for r in port)
+    assert all(r[f"steady_{latent_mode}"]["local_L21"][0] == D // 4 for r in port)
+    assert all(r[f"steady_{latent_mode}"]["placed_cov"] == (D // 4, D) for r in port)
+
+    make = latent.make_steady_state_latent_step if latent_mode else \
+        white.make_steady_state_white_step
+    step_local = make(cache=solver._cache, steady=reference, num_derivatives=2)
+    m_ref, diff_sum = state0.y.mean, 0.0
+    for i in range(5):
+        m_ref, _, _, _, dsq = step_local(m_ref, reference.cov_inf, heat.t0 + (i + 1) * 0.05,
+                                         jnp.asarray(0.05))
+        diff_sum += float(dsq)
+    assert np.allclose(got["mean"], m_ref, atol=1e-7)
+    assert np.allclose(got["diff"], diff_sum / 5, rtol=1e-5)
+    # JAX's own frozen blocks placed by shard_steady_cache: the same recursion
+    assert np.allclose(got["mean_single"], m_ref, rtol=0, atol=1e-10)
+    assert all(r[f"steady_{latent_mode}"]["single_L21"] == (D // 4, got["L21"].shape[1])
+               for r in port)
+
+
+def test_sharded_steady_convergence_chunked_and_promoted(port, setups):
+    """Chunked convergence lands where one run does, and dtype="float64"
+    runs the recursion in f64 on an f32 problem and returns f32 blocks (JAX's
+    tolerances; the distributed panels' delta floor needs tol 1e-4). Each
+    run also sits in that tol-neighborhood of JAX's single-device fixed
+    point."""
+    runs = port[0]["steady_chunked"]
+    tol = 1e-4
+    one, chunked, promoted = runs["one"], runs["chunked"], runs["promoted"]
+    assert chunked["delta"] < tol and chunked["iterations"] < 200
+    assert np.allclose(_gram(chunked["cov_inf"]), _gram(one["cov_inf"]), rtol=1e-3, atol=2e-5)
+    assert promoted["dtype"] == "torch.float32"
+    assert promoted["Sl_inv"].dtype == np.float32
+    assert promoted["delta"] < tol
+    assert np.allclose(_gram(promoted["cov_inf"]), _gram(one["cov_inf"]).astype(np.float32),
+                       rtol=5e-3, atol=2e-5)
+    reference = setups["steady15_False"][1].steady_cache
+    assert np.allclose(_gram(one["cov_inf"]), _gram(np.asarray(reference.cov_inf)), rtol=1e-3,
+                       atol=2e-5)
+
+
+def test_sda_sharded_matches_dense_doubling(port):
+    """The distributed doubling reproduces JAX's dense SDA fixed point at
+    JAX's rtol 1e-9 / atol 1e-11, certified by the DARE residual."""
+    from pnmol_tpu.ops import dare as jdare
+
+    inputs = _sda_inputs()
+    dense = jdare.sda(*(jnp.asarray(inputs[k]) for k in ("A", "G", "Q")), tol=1e-13)
+    got = port[0]["sda"]
+    np.testing.assert_allclose(got["sigma"], np.asarray(dense.sigma), rtol=1e-9, atol=1e-11)
+    assert got["residual"] < 1e-10
+    assert got["iterations"] <= int(dense.iterations) + 2
+    assert all(r["sda"]["local"] == (6, 24) for r in port)
+
+
+def test_sda_sharded_doubling_collectives_equal_comm_model(port):
+    """One doubling's schedule collectives on 4 ranks are two blocked
+    Cholesky factorizations and two blocked cho_solves of D columns."""
+    from pnmol_tpu_torch.utils import comm_model
+
+    parts = [comm_model.blocked_cholesky_cost(24, 4, panel=4)] * 2 + \
+        [comm_model.blocked_cho_solve_cost(24, 24, 4, panel=4)] * 2
+    model = {}
+    for part in parts:
+        for coll in part.collectives:
+            model[coll.kind] = model.get(coll.kind, 0) + coll.total_payload
+    assert all(r["sda"]["schedule"] == model for r in port)
+
+
+def test_sharded_steady_seed_polishes_in_few_iterations(port, setups):
+    """The seeded sharded convergence polishes in a few iterations and
+    matches JAX's single-device steady cache at JAX's tolerances."""
+    _, solver, _ = setups["seeded23"]
+    ref = solver.steady_cache
+    got = port[0]["steady_seeded"]
+    assert got["iterations"] <= 10
+    assert got["dare_residual"] < 1e-5
+    np.testing.assert_allclose(got["L21"] @ got["Sl_inv"], np.asarray(ref.L21 @ ref.Sl_inv),
+                               rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(_gram(got["cov_inf"]), _gram(np.asarray(ref.cov_inf)), rtol=5e-3,
+                               atol=1e-4)
+    assert all(r["steady_seeded"]["iterations"] == got["iterations"] for r in port)
+
+
+def test_steady_dt_sweep_matches_sequential(port, setups):
+    """The frozen-gain dt sweep over the batch axis reproduces JAX's
+    sequential steady simulate_final_state of each dt."""
+    got = port[0]["steady_sweep"]
+    for i, (solver, final) in enumerate(setups["steady_sweep"]):
+        dt = SWEEP_DTS[i]
+        assert np.allclose(got["means"][i], final.y.mean, atol=1e-10), f"dt={dt}"
+        assert np.allclose(got["diffs"][i], final.diffusion_squared_local, rtol=1e-9)
+        expected = np.asarray(solver.steady_cache.cov_inf) * np.sqrt(got["diffs"][i])
+        assert np.allclose(_gram(got["covs"][i]), _gram(expected), atol=1e-9)

@@ -17,10 +17,12 @@ import torch
 
 import pnmol_tpu_torch as pt
 from pnmol_tpu_torch import interop
+from pnmol_tpu_torch.ops import dare
 from pnmol_tpu_torch.parallel import (
     distributed,
     ensembles,
     meshes,
+    sharded_dare,
     sharded_filter,
     sharded_init,
     sharded_linalg,
@@ -308,6 +310,96 @@ def _ensemble_cases(out, p):
     out["ensemble"] = dict(mean=_np(got[0]), cov=_np(got[1]), diff=_np(got[4]))
 
 
+def _steady(arrays):
+    return interop.steady_cache(**{k: arrays[k] for k in (
+        "cov_inf", "L21", "Sl", "Sl_inv", "err_vec", "iterations", "delta")}, device="cpu")
+
+
+def _steady_out(c, steady):
+    """A sharded steady cache's blocks, gathered, its scalars and its local
+    block shapes."""
+    full = {name: _np(sharded_filter._full(steady, name, c.mesh, "space"))
+            for name in ("cov_inf", "L21", "Sl", "Sl_inv")}
+    local = steady.local
+    return dict(full, err_vec=_np(local.err_vec), iterations=local.iterations, delta=local.delta,
+                local_cov=tuple(local.cov_inf.shape), local_L21=tuple(local.L21.shape),
+                dtype=str(local.cov_inf.dtype))
+
+
+def _steady_cases(c, out, p):
+    """The counterparts of the JAX steady tier's five tests."""
+    mesh = c.mesh
+    # the sharded recursion (unseeded) from the converged state, then the
+    # sharded mean-only solve of 5 steps
+    for latent in (False, True):
+        arrays = p["steady15_latent" if latent else "steady15_white"]
+        mean, _ = _state(arrays)
+        cache = sharded_filter.shard_cache((_latent if latent else _white)(arrays), mesh,
+                                           distributed_qr=True)
+        steady = sharded_filter.converge_space_sharded_steady_state(
+            cache=cache, cov0=_cov_shard(arrays, mesh), dt=0.05, num_derivatives=2, mesh=mesh,
+            latent=latent, panel_size=16, seed=False)
+        placed = sharded_filter.shard_steady_cache(steady, mesh)
+        solve = sharded_filter.make_space_sharded_steady_solve(
+            cache=cache, steady=placed, num_derivatives=2, mesh=mesh, dt=0.05, num_steps=5,
+            latent=latent)
+        m, diff = solve(mean, 0.0)
+        # JAX's single-device frozen blocks, placed by the same plan
+        single = sharded_filter.shard_steady_cache(_steady(arrays["steady"]), mesh)
+        m_single, _ = sharded_filter.make_space_sharded_steady_solve(
+            cache=cache, steady=single, num_derivatives=2, mesh=mesh, dt=0.05, num_steps=5,
+            latent=latent)(mean, 0.0)
+        out[f"steady_{latent}"] = dict(_steady_out(c, steady), mean=_np(m), diff=float(diff),
+                                       placed_cov=tuple(placed.local.cov_inf.shape),
+                                       mean_single=_np(m_single),
+                                       single_L21=tuple(single.local.L21.shape))
+
+    # chunked and f64-promoted convergence from the transient state
+    arrays = p["heat15"]
+    cache = sharded_filter.shard_cache(_white(arrays), mesh, distributed_qr=True)
+    runs = {}
+    for key, kw in (("one", {}), ("chunked", dict(chunk_iters=3))):
+        runs[key] = _steady_out(c, sharded_filter.converge_space_sharded_steady_state(
+            cache=cache, cov0=_cov_shard(arrays, mesh), dt=0.05, num_derivatives=2, mesh=mesh,
+            panel_size=16, tol=1e-4, **kw))
+    cache32 = cache._replace(local=type(cache.local)(*(x.float() for x in cache.local)))
+    runs["promoted"] = _steady_out(c, sharded_filter.converge_space_sharded_steady_state(
+        cache=cache32, cov0=_cov_shard(arrays, mesh).float(), dt=0.05, num_derivatives=2,
+        mesh=mesh, panel_size=16, dtype="float64", tol=1e-4, chunk_iters=5))
+    out["steady_chunked"] = runs
+
+    # the doubling against the dense one, and its counted collectives
+    A, G, Q = (torch.tensor(p["sda"][k]) for k in ("A", "G", "Q"))
+    rows = meshes.space_sharding(rank=2)
+    res = sharded_dare.sda_sharded(mesh.shard(A, rows), mesh.shard(G, rows), mesh.shard(Q, rows),
+                                   mesh, tol=1e-13, panel_size=4)
+    sigma = c.rows(res.sigma, A.shape[0])
+    mesh.reset_counts()
+    sharded_dare.sda_sharded(mesh.shard(A, rows), mesh.shard(G, rows), mesh.shard(Q, rows), mesh,
+                             max_iters=1, panel_size=4)
+    out["sda"] = dict(sigma=sigma, iterations=res.iterations, local=tuple(res.sigma.shape),
+                      residual=float(dare.dare_residual(torch.tensor(sigma), A, G, Q)),
+                      schedule=mesh.totals("schedule"), calls=mesh.calls("schedule"))
+
+    # the seeded convergence polishes in a few iterations
+    arrays = p["seeded23"]
+    cache = sharded_filter.shard_cache(_white(arrays), mesh, distributed_qr=True)
+    diagnostics = {}
+    steady = sharded_filter.converge_space_sharded_steady_state(
+        cache=cache, cov0=_cov_shard(arrays, mesh), dt=0.01, num_derivatives=2, mesh=mesh,
+        panel_size=8, diagnostics=diagnostics)
+    out["steady_seeded"] = dict(_steady_out(c, steady), **diagnostics)
+
+    # the frozen-gain dt sweep over the batch axis
+    sweep = p["steady_sweep"]
+    mean, _ = _state(sweep)
+    means, covs, diffs = ensembles.steady_dt_sweep_final_states(
+        cache=_white(sweep), num_derivatives=2, mean0=mean, t0=0.0, tmax=1.0,
+        dts=list(p["sweep_dts"]), mesh=meshes.make_mesh(4, batch=2),
+        steady_caches=ensembles.stack_caches([_steady(s) for s in p["sweep_steadies"]]))
+    out["steady_sweep"] = dict(means=_np(means), covs=_np(covs), diffs=_np(diffs))
+
+
 def parallel_cases(payload, device):
     """Every port-side case of ``tests/test_torch_parallel.py`` on this rank."""
     torch.set_num_threads(1)
@@ -321,6 +413,7 @@ def parallel_cases(payload, device):
     _solve_cases(c, out, payload)
     _init_cases(c, out, payload)
     _ensemble_cases(out, payload)
+    _steady_cases(c, out, payload)
     return out
 
 
@@ -406,4 +499,32 @@ def comm_cases(payload, device):
     sharded_init.sharded_white_initialize(pde, mesh, num_derivatives=nu, panel_size=panel)
     out["init"] = (mesh.totals("schedule"), model(comm_model.distributed_init_cost(
         d, nu, n_bc, P, panel=panel, sharded_r=False)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/torch_steady_gain_spread.py: the port's side
+# ---------------------------------------------------------------------------
+
+
+def steady_spread_rank(payload, device):
+    """The seeded sharded steady state (4 polish iterations) of the N-point
+    heat of ``payload``, on this rank's blocks; returns the blocks gathered."""
+    torch.set_num_threads(2)
+    mesh = distributed.global_mesh(batch=1)
+    n_points, nu, dt = payload["N"], payload["nu"], payload["dt"]
+    dx = 1.0 / (n_points - 1)
+    heat = pt.pde.examples.heat_1d_discretized(
+        dx=dx, tmax=1.0, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx), device="cpu")
+    solver = pt.white.LinearWhiteNoiseEK1(
+        steprule=pt.odetools.step.Constant(dt), num_derivatives=nu,
+        spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise())
+    state = solver.initialize(heat)
+    cache = sharded_filter.shard_cache(solver._cache, mesh, distributed_qr=True)
+    steady = sharded_filter.converge_space_sharded_steady_state(
+        cache=cache, cov0=mesh.shard(state.y.cov_sqrtm, sharded_filter.cov_layout(True)), dt=dt,
+        num_derivatives=nu, mesh=mesh, max_iters=4)
+    out = {name: _np(sharded_filter._full(steady, name, mesh, "space"))
+           for name in ("cov_inf", "L21", "Sl", "Sl_inv")}
+    out["err_vec"] = _np(steady.local.err_vec)
     return out
