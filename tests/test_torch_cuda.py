@@ -668,3 +668,29 @@ def test_sharded_steady_state_on_the_card_matches_the_single_gpu(cuda):
     assert got["solve"] <= 1e-12
     assert got["gram_excess"] <= 0.0
     assert got["trajectory"] <= got["frozen_gap"]
+
+
+def test_figure4_corner_on_the_card_matches_the_committed_results(cuda):
+    """Figure 4's driver at dx = 0.2 and the four largest step sizes on the
+    card through the panel kernel: the committed JAX arrays (read as data)
+    at the CPU test's tolerances (step counts equal, RMSE and chi2 1e-6),
+    and one panel launch for the initialization and for each step of the
+    two PNMOL solvers (every pre-array fits one 128-row panel)."""
+    from pnmol_tpu_torch.experiments import figure4
+
+    results = pathlib.Path(__file__).resolve().parent.parent / "experiments" / "results"
+    before = tq.panel_lq.launches
+    arrays = figure4.run(cuda, dxs=[0.2], dts=figure4.default_dts(False)[:4])
+    launches = tq.panel_lq.launches - before
+    steps = 0
+    for method in figure4.METHODS:
+        for metric in ("rmse", "chi2", "nsteps"):
+            want = np.load(results / "figure4" / f"dx_0.2_{method}_{metric}.npy")[:4]
+            got = arrays[f"dx_0.2_{method}_{metric}"]
+            if metric == "nsteps":
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        if method != "mol":
+            steps += int(arrays[f"dx_0.2_{method}_nsteps"].sum())
+    assert launches == 2 * 4 + steps

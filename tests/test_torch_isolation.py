@@ -43,7 +43,7 @@ def test_no_jax_imports_in_source(path):
 # the modules of the adaptive, semilinear and latent-force slice, of the
 # large-N slice, of the MOL baseline and calibration slice, of
 # steady-state mode, of the n-D problems, of the space-sharded tier and its
-# steady half, and of the utilities
+# steady half, of the utilities, and the figure drivers
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
@@ -52,13 +52,25 @@ SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.
                  "parallel.distributed", "parallel.sharded_linalg", "parallel.sharded_filter",
                  "parallel.sharded_init", "parallel.ensembles", "parallel.sharded_dare",
                  "utils", "utils.comm_model", "utils.checkpoint", "utils.configs", "utils.debug",
-                 "utils.profiling", "utils.resilience")
+                 "utils.profiling", "utils.resilience", "experiments", "experiments.common",
+                 "experiments.figure1", "experiments.figure2", "experiments.figure3",
+                 "experiments.figure4", "experiments.plotting")
 
 
 def test_the_slice_modules_are_checked():
     checked = {str(p.relative_to(REPO / "pnmol_tpu_torch"))[:-3].replace("/", ".")
                .removesuffix(".__init__") for p in _sources() if p.parent != REPO}
     assert set(SLICE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("path", sorted((REPO / "pnmol_tpu_torch" / "experiments").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_the_figure_drivers_keep_their_own_copies(path):
+    """Nothing of the JAX package's ``experiments/`` is imported, and only
+    the plotting module imports matplotlib (the card's machine has none)."""
+    roots = _imported_roots(path)
+    assert "experiments" not in roots
+    assert ("matplotlib" in roots) == (path.name == "plotting.py")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -1,0 +1,30 @@
+"""What the figure-driver tests share: the committed JAX arrays of
+``experiments/results/`` (read as data) and their digests, which a test
+takes before and after a driver's command line runs."""
+
+import hashlib
+import pathlib
+
+import numpy as np
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+RESULTS = REPO / "experiments" / "results"
+
+
+def committed(figure, name):
+    return np.load(RESULTS / figure / f"{name}.npy")
+
+
+def committed_names(figure):
+    return {p.stem for p in (RESULTS / figure).glob("*.npy")}
+
+
+def results_digests():
+    """sha256 of every file under experiments/results/."""
+    return {str(p.relative_to(RESULTS)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(RESULTS.rglob("*")) if p.is_file()}
+
+
+def relative_gap(got, want):
+    """max |got - want| over max |want|."""
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
