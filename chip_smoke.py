@@ -3,6 +3,10 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --figures    # phase P's drivers at full size: every
                                        # row of figures 3 (both routes) and 4
+    python3 chip_smoke.py --drivers    # phase S's drivers at full size: every
+                                       # work-precision dt, both latent rungs,
+                                       # the seeded N = 1e4 decay, the 2-D and
+                                       # 3-D scale_demo step points
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -185,7 +189,27 @@ Phases (any failure exits non-zero; nothing is swallowed):
     iterations, 20 mean-only steps; held to phase F's cache, moved to the
     host before N starts (the Gram within 10 polish deltas, the 20-step
     frozen mean at 1e-3; the gain printed). F and N print the live CUDA
-    storages before their seeds and doublings; J prints its steps' split.
+    storages before their seeds and doublings; J prints its steps' split;
+31. (S1) the work-precision driver (``experiments/work_precision.py``) on
+    the card: ``lv`` (Lotka-Volterra d = 202, six dts) held to the
+    committed CPU f64 rows of ``bench_artifacts/tpu_work_precision.json``
+    (to the gap of the card's near-singular FD stencils),
+    ``heat_512`` on the card's seven dts and ``heat_2048`` at dt 0.1 and
+    0.05, their dt 0.1 rows held to JAX's; each row's relative RMSE, chi2,
+    seconds, steps/s and ``panel_lq`` launches; each reference recomputed
+    by the port's LSODA on the card and held to the committed one;
+32. (S2) the steady probes: the decay at N = 512 (2048 mean-only steps)
+    held to ``bench_artifacts/steady_decay_probe_f64_n512.json``; the decay
+    at N = 1e4 through ``measure`` on phase F's solver (run inside F,
+    printed, no PDE decay held at this mesh); the error probe at the
+    committed configuration held to every row of
+    ``bench_artifacts/steady_error_probe.json``;
+33. (S3) the scale demo: the latent N-ladder's rung N = 4096 at nu = 1
+    (4097 points, stacked state 16388; two-QR banded on the leaf route,
+    two calls of 3 steps: init seconds, steps/s, peak memory),
+    its first step held to the plain two-QR path's (phase 14's
+    tolerances); ``gram --n 10000``, K3 against its plain version in f64
+    (1e-12) and f32 (1e-5).
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -201,7 +225,7 @@ that spawned ranks count in their own processes and report. Each group of
 phases prints its seconds ("time: phases ..."). The last lines are the
 kernels' JSON record, the card, and ``{"ok": true, "device": {...}}``.
 Imports neither JAX nor pnmol_tpu, and reads the JAX package's committed
-figure arrays only as data.
+figure arrays and ``bench_artifacts/`` records only as data.
 """
 import concurrent.futures
 import contextlib
@@ -2022,6 +2046,19 @@ def phase_steady_large(pt, dev, launches, card_line):
           f"{slope:.6e}, the initial derivative {du0:.6e} [{card_line}]", flush=True)
     check((u_full > u0) == (u_frozen > u0), f"{name}: full and frozen steps move max|u| apart")
     check(rel_max(frozen.y.mean, mean_full) <= 1e-3, f"{name}: frozen steps leave the full steps")
+    del mean_full, frozen
+    # S2: the decay probe's measure on this solver (its configuration: nu =
+    # 1, dt 1e-2, the dx-adapted kernel), 2048 mean-only steps. No PDE decay
+    # is held at this mesh (the module docstring); the frozen mean is held
+    # to the full steps just above
+    from pnmol_tpu_torch.experiments import steady_decay_probe
+
+    launches.reset()
+    record, seconds = timed_sync(lambda: steady_decay_probe.measure(
+        solver, state0, DECAY_STEPS, STEADY_DT))
+    launches.read(f"S2 decay N={d} on F's solver", {})
+    decay_line(f"S2 decay N={d} (F's solver)", record, card_line, seconds)
+    check(np.isfinite(record["ratio"]) and record["n"] == d, f"S2 decay N={d}: not finite")
     # phase N's reference, on the host: the device tensors go with this frame
     frozen = state0
     for _ in range(SHARDED_STEADY_STEPS):
@@ -3003,6 +3040,337 @@ def phase_utilities(pt, dev, launches, card_line, heat):
     check(bool(torch.isfinite(out[0]).all()), "O: NaN or inf in the timed step")
 
 
+# the measurement drivers (phase S, pnmol_tpu_torch/experiments): the
+# work-precision legs (S1), the steady probes (S2) and the scale demo's
+# latent rung and Gram (S3); --drivers runs all of them at full size
+BENCH = REPO / "bench_artifacts"
+WP_HEAT_2048_DTS = (0.1, 0.05)
+# the JAX package's heat rows at dt 0.1 (CPU, f64; its live solves built
+# as experiments/tpu_work_precision.py builds them, against the committed
+# references), held at the tolerance of tests/test_torch_work_precision.py,
+# 1e-6 relative (the dx-adapted FD kernel). At 2048 points that kernel's
+# Laplacian is unstable (the committed LSODA reference grows from 0.1 to
+# 11.0 by t = 1; ROADMAP 3.4), and both packages' filters stay near 0.1:
+# RMSE 0.99, chi2 8.7e6. The Lotka-Volterra rows take
+# the default SquareExponential() on dx = 0.01, whose 3- and 4-point
+# stencil Grams are near singular, so the card assembles L and E with its
+# own rounding, and the rows part from the committed CPU rows as the
+# figures' finest rows do (ROADMAP 3.3): the relative RMSE held to
+# WP_LV_GAP absolute, the chi2 to 1e-3 relative, set from an H100 run
+# (NVIDIA H100 80GB HBM3): the card's L and E 2.5e-5 and 6.9e-2 from the
+# CPU's, the rows up to 3.9e-8 and 1.8e-4 apart; the CPU test's 1e-6
+# relative RMSE does not hold from dt 0.00562 on, where the RMSE sits at
+# the FD floor and carries L's gap
+JAX_WP_HEAT = {512: {"rmse_rel": 0.01757362995399361, "chi2": 0.5164480067175954},
+               2048: {"rmse_rel": 0.9916838747619726, "chi2": 8659820.132959297}}
+WP_HEAT_RTOL, WP_LV_GAP, WP_LV_CHI2_RTOL = 1e-6, 1e-7, 1e-3
+# stated before the first run on the card, ten times the CPU tests' (the
+# kernel route's rounding against LAPACK's, over 2048 and 3001 steps): the
+# decay's amplitudes 1e-5 relative (phase E's hold on the frozen mean); the
+# error probe's deviations 1e-12 absolute unseeded, 1e-9 seeded (its gain
+# sits at the polish's stopping delta), the unseeded deltas 1e-5 relative
+DECAY_RTOL, ERR_ATOL_CARD, ERR_DELTA_RTOL = 1e-5, {"seeded": 1e-9, "unseeded": 1e-12}, 1e-5
+ERROR_PROBE_LADDER = (1, 2, 3, 5, 10, 25, 100)
+DECAY_STEPS = 2048
+# the latent N-ladder's rungs, docs/SCALE.md's points: N = 4096 at nu = 1
+# and 3072 at nu = 2 count the mesh's intervals, so 4097 and 3073 points
+# (stacked states 16388 and 18438); 3 steps a call, two calls, two-QR
+# banded on the leaf route
+LATENT_RUNGS = ((4097, 1), (3073, 2))
+RUNG_STEPS = 3
+
+
+def sweep_launches(rows, points):
+    """``{kernel: launches}`` of one LQ sweep of ``rows`` rows by the
+    ``"householder"`` hooks sized for ``points`` points (the latent solver
+    sizes them for its 2d): 128-row blocks in one ``panel_lq`` each below
+    4096 points, else 256-row blocks on the leaf route (``leaf_lq``; leaves
+    of 64 rows from 8192 points, else 32)."""
+    if points < 4096:
+        return {"panel_lq": block_panels(rows)}
+    return {"leaf_lq": leaf_launches(rows, 256, 64 if points >= 8192 else 32)}
+
+
+def add_counts(*counts):
+    """The sum of launch counts by kernel."""
+    total = {}
+    for count in counts:
+        for name, n in count.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_work_precision(pt, dev, launches, card_line, full=False):
+    """S1. The work-precision driver's three legs on the card against the
+    committed references (``experiments/results/wp_ref_*.npy``, read as
+    data, as the committed rows were): ``lv`` on its six dts, held to the
+    committed CPU f64 rows of ``bench_artifacts/tpu_work_precision.json``;
+    ``heat_512`` on the card's ladder and ``heat_2048`` at dt 0.1 and 0.05
+    (``full``: the card's ladder), their dt 0.1 rows held to JAX's. Each
+    leg's launches: one untimed solve at its first dt, then its rows. Then
+    each reference recomputed by the port's LSODA on the card, which the
+    driver holds to the committed one (``work_precision.REFERENCE_RTOL``)."""
+    from pnmol_tpu_torch.experiments import work_precision as wp
+
+    committed_rows = json.loads((BENCH / "tpu_work_precision.json").read_text())["rows"]
+    # the card's Lotka-Volterra operators against the CPU's (the same code)
+    cpu_pde, card_pde = (wp.lotka_volterra(wp.LV_DX, device) for device in ("cpu", dev))
+    gaps = {k: relative_gap(getattr(card_pde, k).cpu().numpy(), getattr(cpu_pde, k).numpy())
+            for k in ("L", "E_sqrtm")}
+    print("S1 lv: the card's FD operators against the CPU's, max |diff| / max |CPU|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+    del cpu_pde, card_pde
+    worst = {}
+    for leg, dts in (("lv_cuda", None), ("heat_512_cuda", None),
+                     ("heat_2048_cuda", None if full else WP_HEAT_2048_DTS)):
+        name, n, _ = wp.parse_leg(leg)
+        problem = wp.Problem(name, n, dev)
+        d = problem.pde.L.shape[0]
+        m, D = d + problem.pde.B.shape[0], (wp.NU + 1) * d
+        ladder = wp.default_dts(name, n, "cuda") if dts is None else list(dts)
+
+        def solve_launches(dt, d=d, m=m, D=D):
+            steps = len(pt.pdefilter.constant_step_schedule(0.0, 1.0, dt)[1])
+            return add_counts(sweep_launches(m + 2 * d, d), *[sweep_launches(m + D, d)] * steps)
+
+        launches.reset()
+        result, seconds = timed_sync(lambda: wp.run_leg(leg, dts=dts))
+        ran = [row["dt"] for row in result["rows"]]
+        check(ran == ladder, f"S1 {leg}: ran the dts {ran}, not {ladder}")
+        launches.read(f"S1 {leg} ({len(ladder)} dts and the warm-up)",
+                      add_counts(*[solve_launches(dt) for dt in [ladder[0]] + ladder]))
+        print(f"S1 {leg}: {seconds:.3f} s, the warm-up solve {result['warmup_seconds']:.3f} s "
+              f"[{card_line}]", flush=True)
+        for row in result["rows"]:
+            check(row["launches"] == {k: solve_launches(row["dt"]).get(k, 0)
+                                      for k in row["launches"]}, f"S1 {leg}: a row's launches")
+            print(f"S1 {leg} dt={row['dt']}: {row['num_steps']} steps, rmse_rel "
+                  f"{row['rmse_rel']:.10e}, chi2 {row['chi2']:.10e}, {row['seconds']:.4f} s, "
+                  f"{row['steps_per_s']:.2f} steps/s, launches {row['launches']} [{card_line}]",
+                  flush=True)
+            check(np.isfinite(row["rmse_rel"]) and np.isfinite(row["chi2"]),
+                  f"S1 {leg} dt={row['dt']}: not finite")
+            if name == "lv":
+                (want,) = [r for r in committed_rows if r["problem"] == "lv"
+                           and r["platform"] == "cpu" and r["dt"] == row["dt"]]
+                limits = {"rmse_rel (abs)": WP_LV_GAP, "chi2 (rel)": WP_LV_CHI2_RTOL}
+            elif row["dt"] == 0.1:
+                want = dict(JAX_WP_HEAT[n], num_steps=10)
+                limits = {"rmse_rel (rel)": WP_HEAT_RTOL, "chi2 (rel)": WP_HEAT_RTOL}
+            else:
+                continue
+            gaps = {"rmse_rel (abs)": abs(row["rmse_rel"] - want["rmse_rel"]),
+                    "rmse_rel (rel)": abs(row["rmse_rel"] / want["rmse_rel"] - 1),
+                    "chi2 (rel)": abs(row["chi2"] / want["chi2"] - 1)}
+            print(f"S1 {leg} dt={row['dt']}: against "
+                  f"{'the committed CPU row' if name == 'lv' else 'JAX'}: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+            check(row["num_steps"] == want["num_steps"], f"S1 {leg} dt={row['dt']}: steps")
+            for key, limit in limits.items():
+                label = f"{name} {key} (held to {limit:g})"
+                worst[label] = max(worst.get(label, 0.0), gaps[key])
+                if gaps[key] > limit:
+                    worst[f"FAILED {leg} dt={row['dt']} {key}"] = gaps[key]
+        launches.reset()
+        (_, ref), seconds = timed_sync(lambda: wp.reference(problem, recompute=True))
+        launches.read(f"S1 {leg}: LSODA reference", {})
+        print(f"S1 {leg}: reference recomputed by LSODA on {ref['d']} unknowns in "
+              f"{ref['seconds']:.3f} s ({ref['jac_calls']} Jacobians, their copies to the host "
+              f"{ref['jac_seconds']:.3f} s), {ref['gap_to_committed']:.3e} from the committed one "
+              f"(held to {wp.REFERENCE_RTOL[name]:g}) [{card_line}]", flush=True)
+        del problem
+    print("S1 largest deviations: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+          flush=True)
+    check(not any(k.startswith("FAILED") for k in worst), "S1: rows beyond their tolerances")
+
+
+def decay_line(label, record, card_line, seconds):
+    print(f"{label}: ratio {record['ratio']:.10e}, per_step_factor "
+          f"{record['per_step_factor']:.10f}, slowest_mode_ratio "
+          f"{record['slowest_mode_ratio']:.6e}, max|u| {record['absmax0']:.10f} -> "
+          f"{record['absmax_final']:.10e} after {record['steps']} mean-only steps in "
+          f"{seconds:.3f} s, riccati_iters {record['riccati_iters']}, dare_residual "
+          f"{record['dare_residual']:.3e} [{card_line}]", flush=True)
+
+
+def phase_steady_probes(pt, dev, launches, card_line):
+    """S2. The decay probe at N = 512 (nu = 1, its SDA seed and 4 polish
+    steps on the panel kernel: 13 panels each for the init, the seed update
+    and each polish step and harvest), 2048 mean-only steps, held to
+    ``bench_artifacts/steady_decay_probe_f64_n512.json``; the error probe at
+    the committed configuration (d = 51: every pre-array in 2 panels), held
+    to every row of ``bench_artifacts/steady_error_probe.json``."""
+    from pnmol_tpu_torch.experiments import steady_decay_probe, steady_error_probe
+
+    want = json.loads((BENCH / "steady_decay_probe_f64_n512.json").read_text())
+    launches.reset()
+    (solver, state), build_s = timed_sync(lambda: steady_decay_probe.build(dev, N_POINTS))
+    record, seconds = timed_sync(lambda: steady_decay_probe.measure(solver, state, DECAY_STEPS))
+    launches.read("S2 decay N=512", {"panel_lq": 13 * (2 + solver.steady_cache.iterations + 1)})
+    decay_line(f"S2 decay N={N_POINTS} (build {build_s:.3f} s)", record, card_line, seconds)
+    gaps = {k: abs(record[k] / want[k] - 1) for k in ("absmax_final", "ratio", "per_step_factor")}
+    print("S2 decay N=512 against the committed record: "
+          + ", ".join(f"{k} rel {v:.3e}" for k, v in gaps.items()), flush=True)
+    check(record["riccati_iters"] == want["riccati_iters"] and max(gaps.values()) <= DECAY_RTOL,
+          "S2 decay N=512: off the committed record")
+    del solver, state
+
+    want = json.loads((BENCH / "steady_error_probe.json").read_text())
+    cfg = want["config"]
+    launches.reset()
+    probe, seconds = timed_sync(lambda: steady_error_probe.run(
+        dev, dx=cfg["dx"], dt=cfg["dt"], tmax=cfg["tmax"], iters_ladder=ERROR_PROBE_LADDER))
+    steps = cfg["num_steps"] - 1
+    expected = 2 + 2 * steps + sum(2 + 2 * (row["riccati_iterations"] + 1)
+                                   + (2 if row["config"] == "sda_seeded" else 0)
+                                   for row in probe["rows"])
+    launches.read("S2 error probe (d=51: full solve, 7 capped, 1 seeded)", {"panel_lq": expected})
+    print(f"S2 error probe at dx {cfg['dx']}, dt {cfg['dt']}, tmax {cfg['tmax']} (d = "
+          f"{probe['config']['d']}, {steps} steps a solve, 9 solves): {seconds:.3f} s "
+          f"[{card_line}]", flush=True)
+    check([r["config"] for r in probe["rows"]] == [r["config"] for r in want["rows"]],
+          "S2 error probe: rows")
+    for got, ref in zip(probe["rows"], want["rows"]):
+        kind = "seeded" if ref["config"] == "sda_seeded" else "unseeded"
+        errs = {k: abs(got[k] - ref[k]) for k in ("rel_mean_err_tail", "rel_mean_err_full")}
+        delta_rel = abs(got["delta"] / ref["delta"] - 1)
+        print(f"S2 error probe {got['config']}: {got['riccati_iterations']} iterations (JAX "
+              f"{ref['riccati_iterations']}), delta {got['delta']:.6e} (JAX {ref['delta']:.6e}), "
+              f"err tail {got['rel_mean_err_tail']:.6e}, full {got['rel_mean_err_full']:.6e}; "
+              f"from the committed row: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+        check(got["riccati_iterations"] == ref["riccati_iterations"]
+              and max(errs.values()) <= ERR_ATOL_CARD[kind]
+              and (kind == "seeded" or delta_rel <= ERR_DELTA_RTOL),
+              f"S2 error probe {got['config']}: off the committed row")
+
+
+def step_once(solver, pde):
+    """The run dict of ``compare_runs`` after initialize and one step."""
+    state = solver.initialize(pde)
+    state, _ = solver.attempt_step(state, solver.steprule.dt, pde)
+    torch.cuda.synchronize()
+    return dict(state=state, info={"num_steps": 1}, diffusion=state.diffusion_squared_local)
+
+
+def phase_latent_rung(pt, dev, launches, card_line, n, nu):
+    """S3. A rung of the scale demo's latent N-ladder: ``scale_demo.step``
+    (``--dim 1 --solver latent``, two-QR banded, ``"householder"``: the
+    hooks sized for 2n points take the leaf route) on two calls of 3 steps,
+    its init seconds, steps/s and peak memory; then the first step of the
+    same solver against the plain two-QR path's first step (phase 14's
+    tolerances). The stacked state has D = 2 (nu + 1) n; the init update LQ
+    m + 4n rows, each step's propagate D and update m + D."""
+    from pnmol_tpu_torch.experiments import scale_demo
+
+    options = dict(nu=nu, dt=DT, fused=False, propagate_band="banded")
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    launches.reset()
+    record, seconds = timed_sync(lambda: scale_demo.step(
+        dev, n=n, dim=1, solver_name="latent", steps=RUNG_STEPS, factorization="householder",
+        **options))
+    m, D = record["N"] + 2, record["state_dim"]
+    per_step = add_counts(sweep_launches(D, 2 * n), sweep_launches(m + D, 2 * n))
+    launches.read(f"S3 latent rung N={n} nu={nu}", add_counts(
+        sweep_launches(m + 4 * n, 2 * n), *[per_step] * (2 * RUNG_STEPS)))
+    print(f"S3 latent rung N={n} nu={nu} (stacked state {D}, m = {m}): init "
+          f"{record['init_seconds']:.3f} s, first call of {RUNG_STEPS} steps "
+          f"{record['first_call_seconds']:.3f} s, {record['steps_per_sec']:.4f} steps/s, "
+          f"max|u| ratio {record['decay_ratio']:.6f}, peak memory "
+          f"{record['peak_memory_gib']:.2f} GiB ({held:.2f} GiB held before), {seconds:.3f} s "
+          f"[{card_line}]", flush=True)
+    check(record["nan_free"] and record["peak_memory_gib"] < 80.0, f"S3 latent rung N={n}: "
+          "NaN or peak memory above the card's 80 GB")
+
+    heat = scale_demo.make_problem(1, n, dev)
+    runs = {}
+    for fac in ("householder", "plain"):
+        launches.reset()
+        runs[fac] = step_once(scale_demo.make_solver("latent", factorization=fac, **options), heat)
+        launches.read(f"S3 latent rung N={n}: one step, {fac}", add_counts(
+            sweep_launches(m + 4 * n, 2 * n), per_step) if fac == "householder" else {})
+    compare_runs(f"S3 latent rung N={n} nu={nu}: the first step, householder vs plain two-QR",
+                 runs["householder"], runs["plain"], d=n)
+
+
+def phase_scale_gram(pt, dev, launches, card_line, n=LARGE_N):
+    """S3. ``scale_demo.gram`` on 1e4 seeded uniform 2-D points: K3 against
+    its plain version in f64 (1e-12) and f32 (1e-5), each a warm-up and 3
+    timed launches."""
+    from pnmol_tpu_torch.experiments import scale_demo
+
+    launches.reset()
+    record = scale_demo.gram(dev, n=n)
+    launches.read(f"S3 gram {n} x {n} (f64, f32)", {"gram_radial": 8})
+    for dtype, tol in (("float64", 1e-12), ("float32", 1e-5)):
+        entry = record[dtype]
+        print(f"S3 gram {n} x {n} {dtype}: kernel {entry['kernel_seconds'] * 1e3:.4f} ms, plain "
+              f"{entry['plain_seconds'] * 1e3:.4f} ms (best of 3, host clock), max|dK| "
+              f"{entry['max_abs_diff']:.3e} (tol {tol:g}) [{card_line}]", flush=True)
+        check(entry["max_abs_diff"] <= tol, f"S3 gram {dtype}: kernel disagrees")
+
+
+def phase_scale_nd(pt, dev, launches, card_line):
+    """``--drivers``: ``scale_demo.step`` at the 2-D 100 x 100 and 3-D 21^3
+    points (phases G and H's problems, nu = 1, two-QR banded on the leaf
+    route), two calls of 3 steps each."""
+    from pnmol_tpu_torch.experiments import scale_demo
+
+    for dim, side, (m, d) in ((2, HEAT2D_SIDE, (10396, 10000)),
+                              (3, ADVECTION_SIDE, (11663, 9261))):
+        D = 2 * d
+        launches.reset()
+        record = scale_demo.step(dev, n=side, dim=dim, nu=1, steps=RUNG_STEPS,
+                                 factorization="householder", propagate_band="banded")
+        launches.read(f"S scale_demo step {dim}-D {side}^{dim}", add_counts(
+            sweep_launches(m + 2 * d, d),
+            *[add_counts(sweep_launches(D, d), sweep_launches(m + D, d))] * (2 * RUNG_STEPS)))
+        print(f"S scale_demo step {dim}-D {side}^{dim}: N {record['N']}, build "
+              f"{record['build_seconds']:.3f} s, init {record['init_seconds']:.3f} s, first "
+              f"call {record['first_call_seconds']:.3f} s, {record['steps_per_sec']:.4f} "
+              f"steps/s, peak {record['peak_memory_gib']:.2f} GiB [{card_line}]", flush=True)
+        check(record["N"] == d and record["nan_free"] and record["peak_memory_gib"] < 80.0,
+              f"S scale_demo step {dim}-D: N, NaN or peak memory")
+
+
+def phase_decay_large(pt, dev, launches, card_line):
+    """``--drivers``: the decay probe at N = 1e4 with its own seed (two-QR
+    banded on the leaf route, as phase F), 2048 mean-only steps."""
+    from pnmol_tpu_torch.experiments import steady_decay_probe
+
+    launches.reset()
+    (solver, state), build_s = timed_sync(lambda: steady_decay_probe.build(dev, LARGE_N))
+    record, seconds = timed_sync(lambda: steady_decay_probe.measure(solver, state, DECAY_STEPS))
+    d, m = LARGE_N, LARGE_N + 2
+    launches.read(f"S2 decay N={LARGE_N} (own seed)", add_counts(
+        sweep_launches(m + 2 * d, d), sweep_launches(m + 2 * d, d),
+        *[add_counts(sweep_launches(2 * d, d), sweep_launches(m + 2 * d, d))]
+        * (solver.steady_cache.iterations + 1)))
+    decay_line(f"S2 decay N={LARGE_N} (own seed, build {build_s:.3f} s)", record, card_line,
+               seconds)
+    check(np.isfinite(record["ratio"]), "S2 decay N=1e4: not finite")
+    del solver, state
+    torch.cuda.empty_cache()
+
+
+def phase_drivers_full(pt, dev, launches, card_line, clock):
+    """``--drivers``: the four measurement drivers at full size: every
+    work-precision leg and dt on the card, the decay at N = 512 and at
+    N = 1e4 (its own seed, two-QR banded), the error probe, both latent
+    rungs, the Gram and the 2-D and 3-D step points."""
+    phase_work_precision(pt, dev, launches, card_line, full=True)
+    clock.lap("S1 (work precision, every dt)")
+    phase_steady_probes(pt, dev, launches, card_line)
+    phase_decay_large(pt, dev, launches, card_line)
+    clock.lap("S2 (steady probes, decay N=1e4 seeded)")
+    for n, nu in LATENT_RUNGS:
+        phase_latent_rung(pt, dev, launches, card_line, n, nu)
+        torch.cuda.empty_cache()
+    phase_scale_gram(pt, dev, launches, card_line)
+    phase_scale_nd(pt, dev, launches, card_line)
+    clock.lap("S3 (scale demo)")
+
+
 def phase_figures_full(pt, dev, launches, card_line, clock):
     """``--figures``: the four figure drivers at full size, every row of
     figures 3 (both routes) and 4, each held as phase P holds its rows."""
@@ -3070,6 +3438,13 @@ def main():
         print(f"the four figures at full size passed in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         return
+    if sys.argv[1:] == ["--drivers"]:
+        phase_drivers_full(pt, dev, Launches(wrappers), card_line, clock)
+        print(f"the four measurement drivers at full size passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: none, --figures or --drivers")
 
     panel = phase_kernel(tq, dev)
     gram = phase_gram(tgram, cuda_build, dev)
@@ -3135,6 +3510,13 @@ def main():
     phase_sharded_gloo(pt, dev, launches, card_line, plain, latent_plain_short(pt, dev),
                        adaptive_plain)
     clock.lap("K")
+    phase_work_precision(pt, dev, launches, card_line)
+    clock.lap("S1 (work precision)")
+    phase_steady_probes(pt, dev, launches, card_line)
+    clock.lap("S2 (steady probes; N=1e4 decay in F)")
+    phase_latent_rung(pt, dev, launches, card_line, *LATENT_RUNGS[0])
+    phase_scale_gram(pt, dev, launches, card_line)
+    clock.lap("S3 (scale demo)")
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,21 +1,31 @@
-"""What the figure drivers share: devices, results IO, extraction and the
-accuracy and calibration statistics.
+"""What the drivers share: devices, results IO, extraction, the accuracy
+and calibration statistics, and the measurement drivers' JSON records and
+leg statuses.
 
 Counterpart of ``experiments/common.py``. The drivers write under an output
 root of the caller's (``--out``; by default ``chiprun_out/figures/`` of the
 checkout, which git ignores), never into ``experiments/results/``, and
 ``--fast`` runs write to ``<figure>_fast/`` beside the full ones. File
-names are the JAX drivers': ``<prefix>_<name>.npy``.
+names are the JAX drivers': ``<prefix>_<name>.npy``. The measurement
+drivers write one JSON file each under ``chiprun_out/<driver>/``
+(:func:`write_artifact`), and never into the JAX package's committed
+records (``bench_artifacts/``, ``experiments/``, ``docs/``).
 """
 
 import argparse
+import json
 import pathlib
 import time
+import traceback
 
 import numpy as np
 import torch
 
-DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "chiprun_out" / "figures"
+REPO = pathlib.Path(__file__).resolve().parents[2]
+DEFAULT_OUT = REPO / "chiprun_out" / "figures"
+ARTIFACT_ROOT = REPO / "chiprun_out"
+# the JAX package's committed records, which no driver of the port writes
+PROTECTED = tuple(REPO / name for name in ("bench_artifacts", "experiments", "docs"))
 
 
 def device_of(name):
@@ -133,6 +143,44 @@ class HostJacobian:
         self.seconds += time.perf_counter() - start
         self.calls += 1
         return jac
+
+
+# ---------------------------------------------------------------------------
+# Measurement drivers: JSON records and leg statuses
+# ---------------------------------------------------------------------------
+
+
+def device_name(device):
+    """The card's name for a CUDA device, ``"cpu"`` otherwise: the
+    ``device`` entry of every record."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def write_artifact(driver, payload, out=ARTIFACT_ROOT):
+    """Write ``payload`` as ``<out>/<driver>/<driver>.json`` and return the
+    path. Refuses a path inside the JAX package's committed records
+    (:data:`PROTECTED`)."""
+    path = (pathlib.Path(out) / driver / f"{driver}.json").resolve()
+    for root in PROTECTED:
+        if path.is_relative_to(root.resolve()):
+            raise ValueError(f"{path} lies in {root}, a committed record of the JAX package")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(payload, indent=1) + "\n")
+    return path
+
+
+def run_leg(name, fn, *args, **kwargs):
+    """``(result, status)`` of one leg ``fn(*args, **kwargs)``. The status is
+    ``{"leg", "status": "completed" | "failed", "error"}``; a failed leg's
+    traceback goes to stderr and its result is None. The caller reports
+    every status and exits non-zero if any failed."""
+    try:
+        result = fn(*args, **kwargs)
+    except Exception as exc:  # noqa: BLE001 - a leg's failure is recorded, never hidden
+        traceback.print_exc()
+        return None, {"leg": name, "status": "failed", "error": f"{type(exc).__name__}: {exc}"}
+    return result, {"leg": name, "status": "completed", "error": None}
 
 
 # ---------------------------------------------------------------------------

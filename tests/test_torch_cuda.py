@@ -694,3 +694,28 @@ def test_figure4_corner_on_the_card_matches_the_committed_results(cuda):
         if method != "mol":
             steps += int(arrays[f"dx_0.2_{method}_nsteps"].sum())
     assert launches == 2 * 4 + steps
+
+
+def test_work_precision_lv_row_on_the_card_matches_the_cpu(cuda):
+    """The work-precision driver's Lotka-Volterra row at dt 0.316 on the
+    card (the panel kernel: 5 panels for the initialization and 7 for each
+    of the 4 steps) against the same row on the CPU (plain QRs), both
+    against the committed reference: the step counts equal, the relative
+    RMSE within 1e-6 and the chi2 within 2e-4 relative, the CPU test's
+    tolerances against the committed rows. Each device assembles the
+    default SquareExponential() stencils on dx = 0.01, whose Grams are near
+    singular, with its own rounding: on an NVIDIA H100 80GB HBM3 the two
+    RMSEs read 5.0e-8 apart."""
+    from pnmol_tpu_torch.experiments import common, work_precision
+
+    rows = {}
+    for device in (torch.device("cpu"), cuda):
+        problem = work_precision.Problem("lv", None, device)
+        u_ref, _ = work_precision.reference(problem)
+        rows[device.type] = work_precision.solve_row(
+            problem, 0.316, u_ref, common.default_factorization(device), device.type)
+    got, want = rows["cuda"], rows["cpu"]
+    assert got["launches"] == {"panel_lq": 5 + 7 * 4, "leaf_lq": 0}
+    assert got["num_steps"] == want["num_steps"] == 4
+    for key, rtol in (("rmse_rel", 1e-6), ("chi2", 2e-4)):
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=0, err_msg=key)

@@ -43,7 +43,8 @@ def test_no_jax_imports_in_source(path):
 # the modules of the adaptive, semilinear and latent-force slice, of the
 # large-N slice, of the MOL baseline and calibration slice, of
 # steady-state mode, of the n-D problems, of the space-sharded tier and its
-# steady half, of the utilities, and the figure drivers
+# steady half, of the utilities, the figure drivers and the measurement
+# drivers
 SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.pdefilter",
                  "models.examples", "models.mixins", "models.problems", "discretize",
                  "native", "odetools.ek1", "odetools.init", "odetools.ivp",
@@ -54,7 +55,9 @@ SLICE_MODULES = ("odetools.step", "ops.stacked_ssm", "solvers.latent", "solvers.
                  "utils", "utils.comm_model", "utils.checkpoint", "utils.configs", "utils.debug",
                  "utils.profiling", "utils.resilience", "experiments", "experiments.common",
                  "experiments.figure1", "experiments.figure2", "experiments.figure3",
-                 "experiments.figure4", "experiments.plotting")
+                 "experiments.figure4", "experiments.plotting", "experiments.scale_demo",
+                 "experiments.steady_decay_probe", "experiments.steady_error_probe",
+                 "experiments.work_precision")
 
 
 def test_the_slice_modules_are_checked():
