@@ -6,7 +6,8 @@
     python3 chip_smoke.py --drivers    # phase S's drivers at full size: every
                                        # work-precision dt, both latent rungs,
                                        # the seeded N = 1e4 decay, the 2-D and
-                                       # 3-D scale_demo step points
+                                       # 3-D scale_demo step points; phase X's
+                                       # f32 work-precision legs and f32 decay
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -209,7 +210,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
     two calls of 3 steps: init seconds, steps/s, peak memory),
     its first step held to the plain two-QR path's (phase 14's
     tolerances); ``gram --n 10000``, K3 against its plain version in f64
-    (1e-12) and f32 (1e-5).
+    (1e-12) and f32 (1e-5);
+34. (X) the f32 precision policy (``PNMOL_TPU_X32``'s, switched at run
+    time by ``config.enable_x64`` around each run): X0 the f32 launches of
+    K1, K2 and K4 against their plain versions at the f32 solver shapes,
+    bitwise repeatable, and their times beside the f32 bound and
+    ``torch.geqrf``'s; X1 the JAX bench's configuration in f32 end to end
+    (N = 512: mesh, FD, init and 20 steps on K1, 353 launches, and on the
+    plain path), held to each other and to phase 5's f64 run, the f32
+    steps on phase 5's f64 init with its cache cast to f32 (the JAX f32
+    test's pattern) held to its f64 steps, and TF32 trailing updates
+    (``precision="default"``), with steps/s and init seconds beside phase
+    5's; X2 the latent solver in f32 on K1 (601) and plain, and its f32
+    steps on a cast cache (the covariance held to the f64 steps'); X3 the
+    R form at leaf 128 on K4 in f32 (340); X4 the N = 1e4 point in f32
+    (two-QR banded on K2), init and 3 steps, steps/s and peak memory beside
+    phase 15's, the first step against the plain f32 path; X5 the seeded
+    steady state at N = 512 in f32 (the f32 recursion's seed raises, as the
+    JAX package's is NaN) and promoted to f64, on the f32 problem (held to
+    the CPU's run on the same operators) and on phase E's problem cast to
+    f32 (max|u| held to phase E's), mean-only steps/s.
+    ``--drivers`` adds the f32 work-precision legs (each row beside the
+    card's f64 row) and the f32 decay at N = 1e4 (the recursion in f64).
 
 At the meshes of phases 14 and 15 the heat does not decay: the FD
 operator's row sum at the initial peak is positive, so ``(L u0)`` points up
@@ -236,6 +258,7 @@ import socket
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -471,24 +494,48 @@ def phase_kernel(tq, dev):
     return dict(max_abs_err=worst, **timed[(128, 3586)])
 
 
-def time_wide(tq, wrapper, name, rng, dev, rows, cols, label, num_sms):
-    """Times of the panel kernel's launch through ``wrapper`` on a random f64
-    ``(rows, cols)`` slab, in turns: plain, kernel, kernel, plain;
-    torch.geqrf of the transposed slab (the same reflectors, no T) as the
-    library yardstick; and the bound."""
-    x = torch.tensor(rng.standard_normal((rows, cols)), device=dev)
+DTYPE_NAMES = {torch.float64: "f64", torch.float32: "f32"}
+
+
+def time_wide(tq, wrapper, name, rng, dev, rows, cols, label, num_sms, dtype=torch.float64):
+    """Times of the panel kernel's launch through ``wrapper`` on a random
+    ``(rows, cols)`` slab of ``dtype``, in turns: plain, kernel, kernel,
+    plain; torch.geqrf of the transposed slab (the same reflectors, no T)
+    as the library yardstick; and the bound."""
+    x = torch.tensor(rng.standard_normal((rows, cols)), dtype=dtype, device=dev)
     xt = x.T.contiguous()
     plain = [cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3)]
     kernel = [cuda_ms(lambda: wrapper(x, 0), 20) for _ in range(2)]
     plain.append(cuda_ms(lambda: tq.panel_lq_reference(x, 0), 3))
     library = cuda_ms(lambda: torch.geqrf(xt), 20)
     ms = sum(kernel) / 2
-    bound_ms, bound_by = panel_bound(rows, cols, 0, torch.float64)
-    launch = tq.panel_lq_launch(rows, cols, 8, num_sms)
-    print(f"{name} {rows} x {cols} f64 ({label}): kernel {kernel} ms, plain {plain} ms, "
+    bound_ms, bound_by = panel_bound(rows, cols, 0, dtype)
+    launch = tq.panel_lq_launch(rows, cols, x.element_size(), num_sms)
+    print(f"{name} {rows} x {cols} {DTYPE_NAMES[dtype]} ({label}): kernel {kernel} ms, "
+          f"plain {plain} ms, "
           f"torch.geqrf {library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
           f"kernel at {bound_ms / ms:.2%} of it; {launch.ctas} CTAs of {launch.width} columns",
           flush=True)
+    return dict(ms=ms, plain_ms=sum(plain) / 2, library_ms=library, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def time_tall(tq, rng, dev, rows, cols, label, num_sms, dtype):
+    """Times of the tall launch (``leaf_qr``) on a random ``(rows, cols)``
+    slab of ``dtype`` in turns (plain, kernel, kernel, plain), torch.geqrf's
+    and the bound."""
+    x = torch.tensor(rng.standard_normal((rows, cols)), dtype=dtype, device=dev)
+    plain = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
+    kernel = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
+    plain.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
+    library = cuda_ms(lambda: torch.geqrf(x), 20)
+    ms = sum(kernel) / 2
+    bound_ms, bound_by = leaf_bound(rows, cols, dtype)
+    launch = tq.leaf_qr_launch(rows, cols, x.element_size(), num_sms)
+    print(f"leaf_qr {rows} x {cols} {DTYPE_NAMES[dtype]} ({label}): kernel {kernel} ms, plain "
+          f"{plain} ms, torch.geqrf {library:.4f} ms; bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}), kernel at {bound_ms / ms:.2%} of it; {launch.ctas} CTAs of "
+          f"{launch.width} rows", flush=True)
     return dict(ms=ms, plain_ms=sum(plain) / 2, library_ms=library, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -637,22 +684,9 @@ def phase_leaf(tq, dev):
 
     # times, f64, in turns: plain, kernel, kernel, plain; torch.geqrf of the
     # slab (the same reflectors, no T) as the library yardstick
-    timed = {}
-    for rows, label in ((3586, "first leaf of a white step"), (6658, "of a latent step"),
-                        (20000, "chunks in global memory")):
-        x = torch.tensor(rng.standard_normal((rows, 32)), device=dev)
-        p = [cuda_ms(lambda: tq.leaf_qr_reference(x), 3)]
-        k = [cuda_ms(lambda: tq.leaf_qr(x), 20) for _ in range(2)]
-        p.append(cuda_ms(lambda: tq.leaf_qr_reference(x), 3))
-        library = cuda_ms(lambda: torch.geqrf(x), 20)
-        bound_ms, bound_by = leaf_bound(rows, 32, torch.float64)
-        launch = tq.leaf_qr_launch(rows, 32, 8, num_sms)
-        print(f"leaf {rows} x 32 f64 ({label}): kernel {k} ms, plain {p} ms, torch.geqrf "
-              f"{library:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}), kernel at "
-              f"{bound_ms / (sum(k) / 2):.2%} of it; {launch.ctas} CTAs of {launch.width} rows",
-              flush=True)
-        timed[rows] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, library_ms=library,
-                           bound_ms=bound_ms, bound_by=bound_by)
+    timed = {rows: time_tall(tq, rng, dev, rows, 32, label, num_sms, torch.float64)
+             for rows, label in ((3586, "first leaf of a white step"),
+                                 (6658, "of a latent step"), (20000, "chunks in global memory"))}
     return dict(max_abs_err=worst, **timed[3586])
 
 
@@ -1087,7 +1121,7 @@ def two_qr_point(pt, dev, launches, card_line, label, make_problem, num_steps,
     64-row leaves. Prints the discretization seconds, each path's init
     seconds, steps/s and peak memory, and one propagate and one update sweep
     of each path by CUDA events. Returns ``(problem, m, D, leaf_lq count
-    of the banded path)``."""
+    of the banded path, the banded path's init s, steps/s and peak GiB)``."""
     n = LARGE_NU + 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1160,16 +1194,19 @@ def two_qr_point(pt, dev, launches, card_line, label, make_problem, num_steps,
     print(f"{label} sweeps (ms, CUDA events, one call after one warm-up): "
           + ", ".join(f"{name} {ms:.1f}" for name, ms in times.items()) + f" [{card_line}]",
           flush=True)
-    return heat, m, D, per_run
+    summary = dict(init_s=runs[banded]["init_s"], steps_per_s=runs[banded]["steps_per_s"],
+                   peak_gib=peaks[banded][0])
+    return heat, m, D, per_run, summary
 
 
 def phase_large_n(pt, dev, launches, card_line):
     """bench.py's large-N point in f64 through the two-QR pipeline on the
     leaf route, banded and interleaved, against the plain two-QR path:
-    N = 1e4, nu = 1, so D = 2e4 and m = 10002."""
-    two_qr_point(pt, dev, launches, card_line, f"N={LARGE_N}",
-                 lambda: dx_adapted_heat(pt, dev, LARGE_N, LARGE_STEPS), LARGE_STEPS,
-                 interleaved=True)
+    N = 1e4, nu = 1, so D = 2e4 and m = 10002. Returns the banded path's
+    init s, steps/s and peak GiB (phase X4 prints its f32 run beside them)."""
+    return two_qr_point(pt, dev, launches, card_line, f"N={LARGE_N}",
+                        lambda: dx_adapted_heat(pt, dev, LARGE_N, LARGE_STEPS), LARGE_STEPS,
+                        interleaved=True)[-1]
 
 
 def phase_heat_2d(pt, tgram, dev, launches, card_line):
@@ -1188,8 +1225,8 @@ def phase_heat_2d(pt, tgram, dev, launches, card_line):
             stencil_size_interior=5, stencil_size_boundary=5, nugget_gram_matrix_fd=1e-10,
             tmax=ND_STEPS * DT, device=dev)
 
-    heat, m, D, leaves = two_qr_point(pt, dev, launches, card_line,
-                                      f"heat 2-D {side}x{side}", problem, ND_STEPS)
+    heat, m, D, leaves, _ = two_qr_point(pt, dev, launches, card_line,
+                                         f"heat 2-D {side}x{side}", problem, ND_STEPS)
     check((m, D, leaves) == (10396, 20000, 2839), "heat 2-D: m, D or the leaf count")
 
     points = heat.mesh_spatial.points
@@ -1231,8 +1268,8 @@ def phase_advection_3d(pt, dev, launches, card_line):
             stencil_size_interior=7, stencil_size_boundary=7, nugget_gram_matrix_fd=1e-10,
             tmax=ND_STEPS * DT, velocity=[1.0, 0.5, 0.25], diffusion_rate=0.05, device=dev)
 
-    _, m, D, leaves = two_qr_point(pt, dev, launches, card_line,
-                                   f"advection 3-D {side}^3", problem, ND_STEPS)
+    _, m, D, leaves, _ = two_qr_point(pt, dev, launches, card_line,
+                                      f"advection 3-D {side}^3", problem, ND_STEPS)
     check((m, D, leaves) == (11663, 18522, 2758), "advection 3-D: m, D or the leaf count")
 
 
@@ -1871,7 +1908,7 @@ def phase_steady(pt, dev, launches, card_line):
             steprule=constant, num_derivatives=NU, spatial_kernel=prior(pt),
             factorization=factorization, steady_state=opts)
 
-    seeded, final_means = {}, {}
+    seeded, final_means, bare_rates = {}, {}, {}
     for fac, label in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
         solver = white(fac)
         launches.reset()
@@ -1900,6 +1937,7 @@ def phase_steady(pt, dev, launches, card_line):
         check(abs(u / JAX_STEADY_MAX_U - 1) <= 1e-5, f"{name}: max|u| {u} after the steps")
         seeded[fac] = solver
         final_means[fac] = run["state"].y.mean
+        bare_rates[fac] = bare
     a, b = seeded["householder"].steady_cache, seeded[None].steady_cache
     errs = (rel_max(a.cov_inf @ a.cov_inf.T, b.cov_inf @ b.cov_inf.T),
             rel_max(a.L21 @ a.Sl_inv, b.L21 @ b.Sl_inv), rel_max(a.err_vec, b.err_vec))
@@ -1959,7 +1997,8 @@ def phase_steady(pt, dev, launches, card_line):
         runs[fac] = run
     compare_runs("steady latent: kernel path vs plain path", runs["householder"], runs[None],
                  d=N_POINTS)
-    return dict(solver=seeded["householder"], mean=final_means["householder"])
+    return dict(solver=seeded["householder"], mean=final_means["householder"], heat=heat,
+                bare=bare_rates["householder"])
 
 
 def phase_steady_large(pt, dev, launches, card_line):
@@ -3109,7 +3148,8 @@ def phase_work_precision(pt, dev, launches, card_line, full=False):
     (``full``: the card's ladder), their dt 0.1 rows held to JAX's. Each
     leg's launches: one untimed solve at its first dt, then its rows. Then
     each reference recomputed by the port's LSODA on the card, which the
-    driver holds to the committed one (``work_precision.REFERENCE_RTOL``)."""
+    driver holds to the committed one (``work_precision.REFERENCE_RTOL``).
+    Returns the card's rows."""
     from pnmol_tpu_torch.experiments import work_precision as wp
 
     committed_rows = json.loads((BENCH / "tpu_work_precision.json").read_text())["rows"]
@@ -3120,7 +3160,7 @@ def phase_work_precision(pt, dev, launches, card_line, full=False):
     print("S1 lv: the card's FD operators against the CPU's, max |diff| / max |CPU|: "
           + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
     del cpu_pde, card_pde
-    worst = {}
+    worst, card_rows = {}, []
     for leg, dts in (("lv_cuda", None), ("heat_512_cuda", None),
                      ("heat_2048_cuda", None if full else WP_HEAT_2048_DTS)):
         name, n, _ = wp.parse_leg(leg)
@@ -3135,6 +3175,7 @@ def phase_work_precision(pt, dev, launches, card_line, full=False):
 
         launches.reset()
         result, seconds = timed_sync(lambda: wp.run_leg(leg, dts=dts))
+        card_rows.extend(result["rows"])
         ran = [row["dt"] for row in result["rows"]]
         check(ran == ladder, f"S1 {leg}: ran the dts {ran}, not {ladder}")
         launches.read(f"S1 {leg} ({len(ladder)} dts and the warm-up)",
@@ -3182,6 +3223,7 @@ def phase_work_precision(pt, dev, launches, card_line, full=False):
     print("S1 largest deviations: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
           flush=True)
     check(not any(k.startswith("FAILED") for k in worst), "S1: rows beyond their tolerances")
+    return card_rows
 
 
 def decay_line(label, record, card_line, seconds):
@@ -3358,7 +3400,7 @@ def phase_drivers_full(pt, dev, launches, card_line, clock):
     work-precision leg and dt on the card, the decay at N = 512 and at
     N = 1e4 (its own seed, two-QR banded), the error probe, both latent
     rungs, the Gram and the 2-D and 3-D step points."""
-    phase_work_precision(pt, dev, launches, card_line, full=True)
+    f64_rows = phase_work_precision(pt, dev, launches, card_line, full=True)
     clock.lap("S1 (work precision, every dt)")
     phase_steady_probes(pt, dev, launches, card_line)
     phase_decay_large(pt, dev, launches, card_line)
@@ -3369,6 +3411,8 @@ def phase_drivers_full(pt, dev, launches, card_line, clock):
     phase_scale_gram(pt, dev, launches, card_line)
     phase_scale_nd(pt, dev, launches, card_line)
     clock.lap("S3 (scale demo)")
+    phase_f32_drivers(pt, dev, launches, card_line, f64_rows)
+    clock.lap("X (the f32 work-precision legs, the f32 decay at N=1e4)")
 
 
 def phase_figures_full(pt, dev, launches, card_line, clock):
@@ -3386,6 +3430,526 @@ def phase_figures_full(pt, dev, launches, card_line, clock):
     for dx in sorted(figure3.DXS):
         phase_figure3(pt, dev, launches, card_line, dx)
         clock.lap(f"figure 3 dx={dx:g}")
+
+
+# phase X: the f32 precision policy (PNMOL_TPU_X32's, switched at run time by
+# pnmol_tpu_torch.config.enable_x64 around each run). The JAX bench's
+# metric of record runs f32 end to end (bench.py:135-141, 158-215): mesh, FD,
+# prior, init and steps in f32. Assembled in f32, the 3-point stencil
+# systems of SquareExponential(0.1/dx) (condition ~1e4) lose about four
+# digits of L, so the solution u after phase 5's 20 steps sits 4.3e-3 from
+# the f64 run's in JAX and in the port alike (on the CPU; ROADMAP 3.5), and
+# the higher derivatives are not determined. So u is held to 1e-2 against
+# phase 5 there, and the step loop's own f32 error is held on phase 5's f64
+# init with its cache cast to f32 (JAX's test_float32.py pattern). There the
+# JAX package's own f32 steps on the CPU read u 5.2e-6, the mean 6.5e-4
+# (norm: the top derivative carries 6.0e-2) and the Gram 8.5e-6 from its
+# f64 steps (the port on the CPU: 4.4e-6, 6.7e-4, 1.8e-5), so JAX's 1e-4
+# on the whole mean (its test at dx = 0.1) holds on u here: u 1e-4, the
+# mean 2e-3, the Gram 1e-4. The latent steps on a cast cache keep only
+# their covariance (JAX: the Gram 5.1e-5 from f64, u 0.23; the port 7.4e-5,
+# 0.32): the Gram 1e-3. Kernel against plain in f32 on the same problem:
+# the mean 1e-4 (norm; CPU 5.1e-7), the Gram 1e-3 (CPU 4.4e-5)
+F32_U_TOL_ASSEMBLED, F32_U_TOL_CAST, F32_MEAN_TOL_CAST, F32_GRAM_TOL_CAST = 1e-2, 1e-4, 2e-3, 1e-4
+F32_LATENT_GRAM_TOL_CAST = 1e-3
+F32_MEAN_TOL, F32_GRAM_TOL = 1e-4, 1e-3
+# X4: bench.py's N = 1e4 point in f32 (nu = 1, two-QR banded on K2), 3 steps
+X4_STEPS = 3
+# X5: the JAX package's f32 steady state at N = 512 on the CPU (PNMOL_TPU_X32):
+# the f32 recursion's seed has no Cholesky factor (NaN, 36 SDA iterations),
+# the f64 recursion on the f32-assembled problem reads max|u| 0.019064756
+# after 512 mean-only steps (the port on the CPU: 0.0238586). On phase E's
+# f64 problem cast to f32 the promoted recursion reads 0.0406255 on the CPU,
+# 1.7e-3 from phase E's value: held to 1e-2. The card's run on its f32
+# problem is held to the port's CPU run on the same operators (copied to the
+# host). On the CPU's own f32 operators the port and the JAX package agree
+# to 3.1e-5 (max|u|) and 2.8e-6 (the frozen covariance's Gram); the card's
+# f32 operators pose a harder DARE (17 SDA iterations to a residual of
+# 2-4e-6, against 14 to 1e-8), and there the card and the CPU part by
+# 3.3e-3 (max|u|, the mean) and 6.8e-3 (the Gram; 4.1e-3 the gain): max|u|
+# and the mean held to 1e-2, the frozen blocks to 2e-2
+JAX_STEADY_F32_PROMOTED_MAX_U = 0.019064756
+F32_STEADY_TOL_CAST, F32_STEADY_TOL_HOST, F32_STEADY_BLOCKS_TOL_HOST = 1e-2, 1e-2, 2e-2
+
+
+def cast_problem(pde64, make_problem):
+    """``make_problem()`` under the f32 policy with the f64 problem's
+    operators, initial value and points cast to f32: X5's frozen f32 steps
+    on phase E's f64 assembly."""
+    from pnmol_tpu_torch.experiments import common
+
+    with common.precision_policy(torch.float32):
+        pde = make_problem()
+    for name in ("L", "E_sqrtm", "B", "R_sqrtm", "y0"):
+        setattr(pde, name, getattr(pde64, name).float())
+    return pde
+
+
+def check_f32_bounded(label, run, d=None):
+    """The f32-assembled problem's hold on max|u| (JAX's
+    test_fine_dx_pipeline_under_x32_mode): at most 1.01 times its start.
+    Its f32 L need not decay the peak: the stencils' row sums there carry
+    f32 rounding (on the CPU the 20 steps move max|u| by -2e-6, on the
+    card by +8e-7)."""
+    u0 = run["y0_mean"][0, :d].abs().max().item()
+    u = run["state"].y.mean[0, :d].abs().max().item()
+    check(u <= 1.01 * u0, f"{label}: max|u| {u} above 1.01 times its start {u0}")
+
+
+def check_f32_state(label, run):
+    state = run["state"]
+    dtypes = {x.dtype for x in (state.y.mean, state.y.cov_sqrtm, state.diffusion_squared_local,
+                                run["diffusion"])}
+    check(dtypes == {torch.float32}, f"{label}: state dtypes {dtypes}, not float32")
+
+
+def f32_distances(run, ref, d=None):
+    """``(u, mean, Gram)`` distances of ``run`` from ``ref`` (either dtype):
+    u = derivative 0 of the solution half, max-relative; the mean, norm-
+    relative; the covariance Gram, max-relative; in f64."""
+    m1, m2 = run["state"].y.mean.double(), ref["state"].y.mean.double()
+    C1, C2 = run["state"].y.cov_sqrtm.double(), ref["state"].y.cov_sqrtm.double()
+    u = rel_max(m1[0, :d], m2[0, :d])
+    mean = ((m1[:, :d] - m2[:, :d]).norm() / m2[:, :d].norm()).item()
+    return u, mean, rel_max(C1 @ C1.T, C2 @ C2.T)
+
+
+def cast_cache_steps(pt, cls, make_step_fn, heat64):
+    """JAX's tests/test_solvers/test_float32.py pattern at the bench point:
+    the f64 init of ``cls`` on the f64 problem (the K1 path), its cache and
+    initial state cast to f32, then NUM_STEPS steps of the solver's f64 step
+    and of the f32 step on the cast cache (``make_step_fn`` with the
+    solver's factorization): ``{"f64": run, "f32": run}`` in the form
+    :func:`f32_distances` reads, each with its steps/s."""
+    solver = heat_solver(pt, "householder", cls=cls, steprule=pt.odetools.step.Constant(DT))
+    state = solver.initialize(heat64)
+    cache32 = type(solver._cache)(*(
+        x.float() if torch.is_tensor(x) and x.is_floating_point() else x for x in solver._cache))
+    step32 = make_step_fn(cache=cache32, num_derivatives=NU, factorization=solver.factorization)
+    runs = {}
+    for label, step, dtype in (("f64", solver._step_fn, torch.float64),
+                               ("f32", step32, torch.float32)):
+        mean, cov = state.y.mean.to(dtype), state.y.cov_sqrtm.to(dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(NUM_STEPS):
+            mean, cov, *_ = step(mean, cov, DT * (k + 1), DT)
+        torch.cuda.synchronize()
+        runs[label] = dict(
+            state=types.SimpleNamespace(y=types.SimpleNamespace(mean=mean, cov_sqrtm=cov)),
+            steps_per_s=NUM_STEPS / (time.perf_counter() - t0))
+    return runs
+
+
+def print_distances(label, dists):
+    print(f"{label}: u rel {dists[0]:.3e}, mean rel (norm) {dists[1]:.3e}, cov Gram rel "
+          f"{dists[2]:.3e}", flush=True)
+
+
+def phase_f32_kernels(tq, dev):
+    """X0. The f32 instantiations of K1, K2 and K4 against their plain
+    versions on the card at the f32 solver shapes (K1: the white step and
+    init panels, the latent step panel; K2: the N = 1e4 leaves; K4: the R
+    form's first leaf at leaf 128 and 32), twice each with bitwise-equal
+    results, the tolerance 1e-4 of the output's largest entry (phase 3's f32
+    holds); then their times beside the f32 bound (bytes halved, operations
+    at the 67 TFLOP/s FP32 rate) and torch.geqrf's f32 time."""
+    rng = np.random.default_rng(5)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = dict.fromkeys(("panel_lq", "leaf_lq", "leaf_qr"), 0.0)
+    cases = [("panel_lq", 128, 3586), ("panel_lq", 128, 1538), ("panel_lq", 128, 6658),
+             ("leaf_lq", 64, 20257), ("leaf_lq", 64, 30002),
+             ("leaf_qr", 3586, 128), ("leaf_qr", 3586, 32)]
+    for name, rows, cols in cases:
+        x = torch.tensor(rng.standard_normal((rows, cols)), dtype=torch.float32, device=dev)
+        if name == "leaf_qr":
+            outs = [tq.leaf_qr(x) for _ in range(2)]
+            ref = tq.leaf_qr_reference(x)
+        else:
+            outs = [getattr(tq, name)(x, 0) for _ in range(2)]
+            ref = tq.panel_lq_reference(x, 0)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        err = max((a - b).abs().max().item() for a, b in zip(outs[0], ref))
+        tol = 1e-4 * ref[0].abs().max().item()
+        print(f"X0 {name} f32 {rows} x {cols} vs plain: max|d| {err:.3e} (tol {tol:.3e}); two "
+              f"launches bitwise equal: {same}", flush=True)
+        check(np.isfinite(err) and err <= tol, f"X0 {name} f32 {rows} x {cols}: kernel disagrees")
+        check(same, f"X0 {name} f32 {rows} x {cols}: two launches differ")
+        worst[name] = max(worst[name], err)
+    f32 = torch.float32
+    timed = {
+        "panel_lq": time_wide(tq, tq.panel_lq, "panel", rng, dev, 128, 3586, "step panel",
+                              num_sms, f32),
+        "leaf_lq": time_wide(tq, tq.leaf_lq, "leaf_lq", rng, dev, 64, 20257, "banded window",
+                             num_sms, f32),
+        "leaf_qr": time_tall(tq, rng, dev, 3586, 128, "leaf 128", num_sms, f32),
+    }
+    time_wide(tq, tq.panel_lq, "panel", rng, dev, 128, 1538, "white init panel", num_sms, f32)
+    time_tall(tq, rng, dev, 3586, 32, "first leaf of a white step", num_sms, f32)
+    return {name: dict(max_abs_err=worst[name], **timed[name]) for name in timed}
+
+
+def phase_f32_bench(pt, tq, dev, launches, card_line, heat64, f64_run):
+    """X1. The JAX bench's configuration in f32 end to end (N = 512, nu = 2,
+    Constant(1e-3), the dx-adapted FD kernel, Matern52 + WhiteNoise): mesh,
+    FD, init and 20 steps on the K1 f32 path (353 ``panel_lq``), then on
+    the plain f32 path, held to each other and to phase 5's f64 run; the
+    f32 steps on phase 5's f64 init with its cache cast to f32 (693
+    ``panel_lq``: the f64 init, the f64 and the f32 steps), held to the f64
+    steps; and the TF32 trailing updates (``precision="default"``: the init
+    plain, 340 ``panel_lq``). Returns the f32 problem and its plain run."""
+    from pnmol_tpu_torch.experiments import common
+
+    constant = pt.odetools.step.Constant(DT)
+    with common.precision_policy(torch.float32):
+        heat, setup_s = timed_sync(lambda: full_width_heat(pt, dev))
+        dtypes = {getattr(heat, k).dtype for k in ("L", "E_sqrtm", "B", "R_sqrtm", "y0")}
+        check(dtypes == {torch.float32} and heat.mesh_spatial.points.dtype == torch.float32,
+              f"X1: the f32 problem's dtypes {dtypes}")
+        print(f"X1 N={N_POINTS} f32 problem (mesh and FD) built in {setup_s:.3f} s", flush=True)
+        launches.reset()
+        hh = run_solver(heat_solver(pt, "householder", steprule=constant), heat)
+        plain = run_solver(heat_solver(pt, None, steprule=constant), heat)
+        launches.read(f"X1 N={N_POINTS} f32 FD path", {"panel_lq": EXPECTED_LAUNCHES})
+    for label, run in (("householder kernel", hh), ("plain torch.linalg.qr", plain)):
+        report_run(f"X1 N={N_POINTS} f32 {label}", run, card_line, decays=False)
+        check_f32_bounded(f"X1 {label}", run)
+        check_f32_state(f"X1 {label}", run)
+    dists = f32_distances(hh, plain)
+    print_distances("X1 f32 kernel path vs f32 plain path", dists)
+    check(dists[1] <= F32_MEAN_TOL and dists[2] <= F32_GRAM_TOL, "X1: f32 paths disagree")
+    for label, run in (("kernel", hh), ("plain", plain)):
+        dists = f32_distances(run, f64_run)
+        print_distances(f"X1 f32 {label} path vs phase 5's f64 kernel path", dists)
+        check(dists[0] <= F32_U_TOL_ASSEMBLED, f"X1 f32 {label}: u off the f64 run")
+    print(f"X1 f32 against phase 5's f64 (kernel path): {hh['steps_per_s']:.2f} against "
+          f"{f64_run['steps_per_s']:.2f} steps/s, init {hh['init_s']:.3f} against "
+          f"{f64_run['init_s']:.3f} s; plain f32 {plain['steps_per_s']:.2f} steps/s "
+          f"[{card_line}]", flush=True)
+
+    # the step loop in f32 on phase 5's f64 init, its cache cast to f32
+    launches.reset()
+    cast = cast_cache_steps(pt, pt.white.LinearWhiteNoiseEK1, pt.white.make_white_step_fn,
+                            heat64)
+    launches.read(f"X1 N={N_POINTS} f64 init, f64 steps and f32 steps on the cast cache",
+                  {"panel_lq": EXPECTED_LAUNCHES + 17 * NUM_STEPS})
+    mean, cov = cast["f32"]["state"].y.mean, cast["f32"]["state"].y.cov_sqrtm
+    check(mean.dtype == cov.dtype == torch.float32
+          and bool(torch.isfinite(mean).all() and torch.isfinite(cov).all()),
+          "X1 cast cache: the f32 state is not float32 or not finite")
+    dists = f32_distances(cast["f32"], cast["f64"])
+    print_distances("X1 f32 steps on phase 5's f64 init, cache cast to f32, vs its f64 steps",
+                    dists)
+    print(f"X1 cast cache: f32 steps {cast['f32']['steps_per_s']:.2f} steps/s, f64 "
+          f"{cast['f64']['steps_per_s']:.2f} (bare step loops) [{card_line}]", flush=True)
+    check(dists[0] <= F32_U_TOL_CAST and dists[1] <= F32_MEAN_TOL_CAST
+          and dists[2] <= F32_GRAM_TOL_CAST, "X1: the f32 step loop leaves the f64 steps")
+
+    # TF32 trailing updates, the card's counterpart of the TPU bench's
+    # matmul_precision "default" (bench_artifacts/pdefilter_steps_per_sec_n512.json)
+    before = torch.backends.cuda.matmul.allow_tf32
+    with common.precision_policy(torch.float32):
+        launches.reset()
+        tf32 = run_solver(heat_solver(pt, tq.make_householder_lq_factorization(
+            precision="default"), steprule=constant), heat)
+        launches.read(f"X1 N={N_POINTS} f32 TF32 trailing updates", {
+            "panel_lq": EXPECTED_LAUNCHES - 13})
+    check(torch.backends.cuda.matmul.allow_tf32 == before, "X1: the TF32 scope leaked")
+    report_run(f"X1 N={N_POINTS} f32 TF32 (precision='default'), householder kernel", tf32,
+               card_line, decays=False)
+    check_f32_bounded("X1 TF32", tf32)
+    check_f32_state("X1 TF32", tf32)
+    print_distances("X1 TF32 vs phase 5's f64 kernel path", f32_distances(tf32, f64_run))
+    print_distances("X1 TF32 vs the f32 kernel path", f32_distances(tf32, hh))
+    print(f"X1 TF32: {tf32['steps_per_s']:.2f} steps/s against f32 {hh['steps_per_s']:.2f} and "
+          f"f64 {f64_run['steps_per_s']:.2f} [{card_line}]", flush=True)
+    return heat, plain
+
+
+def phase_f32_latent_and_r_form(pt, tq, launches, heat, plain, heat64, latent64, card_line):
+    """X2. The latent solver on the f32 problem on K1 (601 ``panel_lq``) and
+    on the plain path. Its noise-free measurement leaves the latent stack
+    conditioned beyond f32 (in f64 the two paths' stacked means already
+    part by 4.2e-8, ROADMAP queue 3), so in f32 the mean is not determined:
+    on the CPU the JAX package's f32 run reads max|u| 0.1334 after the 20
+    steps (f64: 0.0998) and the port's two paths part by O(1), differently
+    with the thread count (ROADMAP 3.5); this run holds the f32 dtypes,
+    finite values and the launch count, and prints the distances. The
+    covariance is determined: on phase 5's f64 latent init with its cache
+    cast to f32 (1181 ``panel_lq``: the f64 init, the f64 and the f32
+    steps), the f32 steps' Gram is held to the f64 steps' (the JAX
+    package's reads 5.1e-5 on the CPU, its u 0.23).
+    X3. The R form at leaf 128 on K4 in f32 (340 ``leaf_qr``), held to X1's
+    plain run as X1's paths are held."""
+    from pnmol_tpu_torch.experiments import common
+
+    constant = pt.odetools.step.Constant(DT)
+    with common.precision_policy(torch.float32):
+        launches.reset()
+        runs = {fac: run_solver(heat_solver(pt, fac, cls=pt.latent.LinearLatentForceEK1,
+                                            steprule=constant), heat)
+                for fac in ("householder", None)}
+        launches.read(f"X2 N={N_POINTS} f32 latent path", {"panel_lq": EXPECTED_LATENT_LAUNCHES})
+        launches.reset()
+        rf = run_solver(heat_solver(pt, tq.make_householder_factorization(leaf=128),
+                                    steprule=constant), heat)
+        launches.read(f"X3 N={N_POINTS} f32 R form at leaf 128",
+                      {"leaf_qr": EXPECTED_LEAF128_LAUNCHES})
+    for fac, label in (("householder", "householder kernel"), (None, "plain torch.linalg.qr")):
+        report_run(f"X2 N={N_POINTS} f32 latent, {label}", runs[fac], card_line, d=N_POINTS,
+                   decays=False)
+        check_f32_state(f"X2 {label}", runs[fac])
+        print_distances(f"X2 f32 latent {label} vs phase 9's f64 plain run (solution half)",
+                        f32_distances(runs[fac], latent64, d=N_POINTS))
+    print_distances("X2 f32 latent kernel path vs f32 plain path (solution half)",
+                    f32_distances(runs["householder"], runs[None], d=N_POINTS))
+    launches.reset()
+    cast = cast_cache_steps(pt, pt.latent.LinearLatentForceEK1, pt.latent.make_latent_step_fn,
+                            heat64)
+    launches.read(f"X2 N={N_POINTS} latent f64 init, f64 steps and f32 steps on the cast cache",
+                  {"panel_lq": EXPECTED_LATENT_LAUNCHES + 29 * NUM_STEPS})
+    dists = f32_distances(cast["f32"], cast["f64"], d=N_POINTS)
+    print_distances("X2 f32 latent steps on phase 5's f64 init, cache cast to f32, vs its f64 "
+                    "steps (solution half)", dists)
+    check(cast["f32"]["state"].y.cov_sqrtm.dtype == torch.float32
+          and dists[2] <= F32_LATENT_GRAM_TOL_CAST,
+          "X2: the f32 latent steps' covariance leaves the f64 steps'")
+    report_run(f"X3 N={N_POINTS} f32 R form at leaf 128, leaf kernel", rf, card_line,
+               decays=False)
+    check_f32_bounded("X3", rf)
+    check_f32_state("X3", rf)
+    dists = f32_distances(rf, plain)
+    print_distances("X3 f32 R form at leaf 128 vs X1's f32 plain path", dists)
+    check(dists[1] <= F32_MEAN_TOL and dists[2] <= F32_GRAM_TOL, "X3: f32 R form disagrees")
+
+
+def phase_f32_large(pt, dev, launches, card_line, f64_large):
+    """X4. bench.py's N = 1e4 point in f32 end to end (nu = 1, two-QR
+    banded on the K2 leaf route: 256-row blocks of 64-row leaves, as in
+    f64): initialize and 3 steps, init seconds, steps/s and peak memory
+    beside phase 15's f64 banded run; the first step held to the plain f32
+    two-QR path's first step (the mean 1e-4, the standard deviations 1e-3)."""
+    from pnmol_tpu_torch.experiments import common
+
+    n, d = LARGE_NU + 1, LARGE_N
+    with common.precision_policy(torch.float32):
+        heat, setup_s = timed_sync(lambda: dx_adapted_heat(pt, dev, LARGE_N, X4_STEPS))
+        m, D = d + heat.B.shape[0], n * d
+        per_step = leaf_launches(D, 256, 64) + leaf_launches(m + D, 256, 64)
+        init = leaf_launches(m + 2 * d, 256, 64)
+        solver = pt.white.LinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(DT), num_derivatives=LARGE_NU,
+            spatial_kernel=prior(pt), factorization="householder", fused=False,
+            propagate_band="banded")
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches.reset()
+        t0 = time.perf_counter()
+        first = None
+        for state, info in solver.solution_generator(heat):
+            torch.cuda.synchronize()
+            if info["num_steps"] == 0:
+                t_init = time.perf_counter()
+            elif info["num_steps"] == 1:
+                first = (state.y.mean.clone(), state.y.cov_sqrtm.norm(dim=1))
+        t_end = time.perf_counter()
+        launches.read(f"X4 N={LARGE_N} f32 two-QR banded", {"leaf_lq": init + X4_STEPS * per_step})
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        steps = info["num_steps"]
+        check(steps == X4_STEPS, f"X4: ran {steps} steps")
+        mean, cov = state.y.mean, state.y.cov_sqrtm
+        check(mean.dtype == cov.dtype == torch.float32 and bool(torch.isfinite(mean).all()
+                                                                and torch.isfinite(cov).all()),
+              "X4: the f32 state is not float32 or not finite")
+        steps_per_s = steps / (t_end - t_init)
+        print(f"X4 N={LARGE_N} f32 two-QR banded (leaf route): problem {setup_s:.3f} s, init "
+              f"{t_init - t0:.3f} s, {steps_per_s:.4f} steps/s, peak {peak:.2f} GiB ({held:.2f} "
+              f"held before); phase 15's f64 banded run: init {f64_large['init_s']:.3f} s, "
+              f"{f64_large['steps_per_s']:.4f} steps/s, peak {f64_large['peak_gib']:.2f} GiB "
+              f"[{card_line}]", flush=True)
+        del solver, state, mean, cov
+        plain = pt.white.LinearWhiteNoiseEK1(
+            steprule=pt.odetools.step.Constant(DT), num_derivatives=LARGE_NU,
+            spatial_kernel=prior(pt), factorization=None, fused=False)
+        launches.reset()
+        state = step_once(plain, heat)["state"]
+        launches.read(f"X4 N={LARGE_N} f32 plain two-QR, one step", {})
+    mean_rel = ((first[0].double() - state.y.mean.double()).norm()
+                / state.y.mean.double().norm()).item()
+    std_rel = rel_max(first[1].double(), state.y.cov_sqrtm.norm(dim=1).double())
+    print(f"X4 N={LARGE_N} f32 first step, banded kernel path vs plain two-QR: mean rel (norm) "
+          f"{mean_rel:.3e}, std rel {std_rel:.3e} [{card_line}]", flush=True)
+    check(mean_rel <= F32_MEAN_TOL and std_rel <= F32_GRAM_TOL, "X4: f32 paths disagree")
+    del heat, plain, state, first
+    torch.cuda.empty_cache()
+
+
+def phase_f32_steady(pt, dev, launches, card_line, steady64):
+    """X5. The seeded steady state at N = 512 (phase E's configuration)
+    under the f32 policy: the f32 recursion's seed has no Cholesky factor in
+    f32 (the JAX package's is NaN) and raises; the recursion promoted to f64
+    (``dtype="float64"``: the init LQ on K1, the seed and polish plain, the
+    frozen blocks cast back) on the f32-assembled problem, held to the same
+    run on the CPU on that problem's operators copied to the host, max|u|
+    printed beside JAX's; and on phase E's f64 problem cast to f32, max|u|
+    held to phase E's. Mean-only steps/s of each beside phase E's f64 rate."""
+    from pnmol_tpu_torch import interop
+    from pnmol_tpu_torch.experiments import common
+
+    constant = pt.odetools.step.Constant(STEADY_DT)
+
+    def solver(opts):
+        return pt.white.LinearWhiteNoiseEK1(
+            steprule=constant, num_derivatives=NU, spatial_kernel=prior(pt),
+            factorization="householder", steady_state=opts)
+
+    with common.precision_policy(torch.float32):
+        heat = dx_adapted_heat(pt, dev, N_POINTS, STEADY_STEPS, dt=STEADY_DT)
+        try:
+            solver(True).initialize(heat)
+            raised = None
+        except torch.linalg.LinAlgError as err:
+            raised = str(err).splitlines()[0]
+        print(f"X5 N={N_POINTS} f32 seeded steady state, the recursion in f32: the seed's "
+              f"Cholesky raises ({raised}), as the JAX package's f32 seed gives NaN", flush=True)
+        check(raised is not None, "X5: the f32 seed factorized: the pinned behavior changed")
+    cast = cast_problem(steady64["heat"],
+                        lambda: dx_adapted_heat(pt, dev, N_POINTS, STEADY_STEPS, dt=STEADY_DT))
+    bare64 = steady64["bare"]
+    promoted_runs = {}
+    for label, pde in (("the f32 problem", heat), ("phase E's f64 problem cast to f32", cast)):
+        with common.precision_policy(torch.float32):
+            promoted = solver({"dtype": "float64"})
+            launches.reset()
+            run = run_solver(promoted, pde, num_steps=STEADY_STEPS)
+            launches.read(f"X5 promoted on {label}", {"panel_lq": 13})
+            check_f32_state(f"X5 promoted on {label}", run)
+            sc = promoted.steady_cache
+            check(all(x.dtype == torch.float32 for x in (sc.cov_inf, sc.L21, sc.Sl_inv,
+                                                          sc.err_vec)),
+                  "X5: the frozen blocks are not float32")
+            bare, _ = bare_steps_per_s(promoted, run["state"], pde, STEADY_STEPS)
+        promoted_runs[label] = (promoted, run["state"].y.mean)
+        u = run["state"].y.mean[0].abs().max().item()
+        info = promoted.steady_diagnostics
+        print(f"X5 N={N_POINTS} promoted (f64 recursion) on {label}: init {run['init_s']:.3f} s, "
+              f"SDA {info['sda_iterations']} iterations, dare_residual "
+              f"{info['dare_residual']:.3e}, polish {sc.iterations} (delta {sc.delta:.3e}); "
+              f"max|u| after {STEADY_STEPS} mean-only steps {u:.10f} (phase E f64 "
+              f"{JAX_STEADY_MAX_U}, rel {abs(u / JAX_STEADY_MAX_U - 1):.3e}; the JAX package's "
+              f"f32 problem {JAX_STEADY_F32_PROMOTED_MAX_U}); mean-only {bare:.1f} steps/s in a "
+              f"bare loop (f32), phase E's f64 {bare64:.1f} [{card_line}]", flush=True)
+        check(np.isfinite(u), f"X5 on {label}: not finite")
+        if pde is cast:
+            check(abs(u / JAX_STEADY_MAX_U - 1) <= F32_STEADY_TOL_CAST,
+                  "X5: the f32 frozen steps on the cast problem leave phase E's max|u|")
+
+    # the same promoted run on the CPU, on the f32 problem's operators
+    # copied to the host: where the card and the CPU part, the operators are
+    # not the cause
+    with common.precision_policy(torch.float32):
+        host = interop.discretized_problem(
+            **{k: getattr(heat, k).cpu().numpy() for k in ("L", "E_sqrtm", "B", "R_sqrtm", "y0")},
+            points=heat.mesh_spatial.points.cpu().numpy(), t0=heat.t0, tmax=heat.tmax,
+            device="cpu")
+        host_solver = solver({"dtype": "float64"})
+        (final, _), host_s = timed_sync(lambda: host_solver.simulate_final_state(host))
+    card_solver, card_mean = promoted_runs["the f32 problem"]
+    card_mean, host_mean = card_mean.cpu().double(), final.y.mean.double()
+    u_card, u_host = card_mean[0].abs().max().item(), host_mean[0].abs().max().item()
+    mean_rel = ((card_mean - host_mean).norm() / host_mean.norm()).item()
+    blocks = {}
+    for key, sc in (("card", card_solver.steady_cache), ("host", host_solver.steady_cache)):
+        cov, L21, Sl_inv = (x.cpu().double() for x in (sc.cov_inf, sc.L21, sc.Sl_inv))
+        blocks[key] = (cov @ cov.T, L21 @ Sl_inv)
+    gram_rel = rel_max(blocks["card"][0], blocks["host"][0])
+    gain_rel = rel_max(blocks["card"][1], blocks["host"][1])
+    info = host_solver.steady_diagnostics
+    print(f"X5 N={N_POINTS} promoted on the f32 problem, the card against the CPU on the same "
+          f"operators ({host_s:.3f} s there; SDA {info['sda_iterations']} iterations, "
+          f"dare_residual {info['dare_residual']:.3e}, polish "
+          f"{host_solver.steady_cache.iterations}): frozen covariance Gram rel {gram_rel:.3e}, "
+          f"gain rel {gain_rel:.3e}; max|u| {u_card:.10f} against {u_host:.10f} (rel "
+          f"{abs(u_card / u_host - 1):.3e}), mean rel (norm) {mean_rel:.3e} [{card_line}]",
+          flush=True)
+    check(abs(u_card / u_host - 1) <= F32_STEADY_TOL_HOST and mean_rel <= F32_STEADY_TOL_HOST
+          and gram_rel <= F32_STEADY_BLOCKS_TOL_HOST and gain_rel <= F32_STEADY_BLOCKS_TOL_HOST,
+          "X5: the card's promoted run on the f32 problem leaves the CPU's on its operators")
+
+
+def phase_f32_drivers(pt, dev, launches, card_line, f64_rows):
+    """``--drivers``: the JAX drivers' f32 legs. The work-precision legs in
+    f32 (``lv_cuda_f32``, ``heat_512_cuda_f32``, ``heat_2048_cuda_f32`` at
+    S1's dts), each row beside the card's f64 row: where the f64 row's RMSE
+    is at least 10 times the f32 leg's floor (its smallest RMSE) the f32 row
+    is held to it at 10% (the JAX driver's claim, that f32 lands on the f64
+    curve until its roundoff floor binds), else it is printed as bound.
+    Then the decay probe at N = 1e4 on an f32 problem, the recursion in
+    f32 (its seed may have no f32 Cholesky factor, as at N = 512 in X5:
+    printed) and promoted to f64, 2048 mean-only steps in f32 each: the
+    ratios beside S2's f64 one (PERF.md §7). The lv leg's FD assembly may
+    have no f32 Cholesky factor on the card (printed)."""
+    from pnmol_tpu_torch.experiments import common, steady_decay_probe
+    from pnmol_tpu_torch.experiments import work_precision as wp
+
+    by_dt = {(row["problem"], row["n"], row["dt"]): row for row in f64_rows}
+    for leg in wp.F32_LEGS:
+        dts = WP_HEAT_2048_DTS if leg.startswith("heat_2048") else None
+        (result, status), seconds = timed_sync(lambda: common.run_leg(leg, wp.run_leg, leg,
+                                                                      dts=dts))
+        if leg.startswith("lv") and status["status"] == "failed":
+            # the default SquareExponential() stencils on dx 0.01 are near
+            # singular (ROADMAP 3.3); in f32 cuSOLVER's Cholesky refuses
+            # them where LAPACK's factors them (the JAX package's and the
+            # port's CPU runs): rounding's call, recorded, not held
+            print(f"X {leg}: failed in {seconds:.3f} s: {status['error'][:160]}", flush=True)
+            check("LinAlgError" in status["error"], f"X {leg}: {status['error']}")
+            continue
+        check(status["status"] == "completed", f"X {leg}: {status['error']}")
+        rows = result["rows"]
+        floor = min(row["rmse_rel"] for row in rows)
+        print(f"X {leg}: {seconds:.3f} s, the f32 floor (smallest rmse_rel) {floor:.6e} "
+              f"[{card_line}]", flush=True)
+        for row in rows:
+            want = by_dt[row["problem"], row["n"], row["dt"]]
+            check(row["dtype"] == "float32" and np.isfinite(row["rmse_rel"]),
+                  f"X {leg} dt={row['dt']}: not an f32 row or not finite")
+            bound = want["rmse_rel"] < 10 * floor
+            gap = abs(row["rmse_rel"] / want["rmse_rel"] - 1)
+            print(f"X {leg} dt={row['dt']}: rmse_rel {row['rmse_rel']:.6e} (f64 "
+                  f"{want['rmse_rel']:.6e}, rel {gap:.3e}{', bound by the f32 floor' if bound else ''}), "
+                  f"chi2 {row['chi2']:.6e} (f64 {want['chi2']:.6e}), {row['steps_per_s']:.2f} "
+                  f"steps/s (f64 {want['steps_per_s']:.2f}) [{card_line}]", flush=True)
+            check(bound or gap <= 0.1, f"X {leg} dt={row['dt']}: off the f64 curve")
+
+    # the decay on an f32 problem: the recursion in f32 (as the TPU's run),
+    # then promoted to f64
+    for opts, label in ((True, "f32 recursion"), ({"dtype": "float64"}, "f64 recursion")):
+        with common.precision_policy(torch.float32):
+            heat = dx_adapted_heat(pt, dev, LARGE_N, 1)
+            solver = pt.white.LinearWhiteNoiseEK1(
+                steprule=pt.odetools.step.Constant(STEADY_DT), num_derivatives=1,
+                spatial_kernel=prior(pt), steady_state=opts,
+                **steady_decay_probe.solver_options(dev, LARGE_N))
+            try:
+                state, build_s = timed_sync(lambda: solver.initialize(heat))
+            except torch.linalg.LinAlgError as err:
+                print(f"X decay N={LARGE_N} f32 problem, {label}: the seed has no Cholesky "
+                      f"factor in f32 ({str(err).splitlines()[0][:120]})", flush=True)
+                check(opts is True, f"X decay N={LARGE_N}: the {label} failed")
+                del heat, solver
+                torch.cuda.empty_cache()
+                continue
+            del heat
+            record, seconds = timed_sync(lambda: steady_decay_probe.measure(solver, state,
+                                                                            DECAY_STEPS))
+        decay_line(f"X decay N={LARGE_N} f32 problem, {label} (build {build_s:.3f} s)",
+                   record, card_line, seconds)
+        check(np.isfinite(record["ratio"]) and record["dtype"] == "torch.float32",
+              f"X decay N={LARGE_N} f32, {label}: not finite or not f32")
+        del solver, state
+        torch.cuda.empty_cache()
 
 
 class Laps:
@@ -3477,7 +4041,7 @@ def main():
     phase_latent_r_form(pt, tq, launches, heat, latent_plain, card_line)
     clock.lap("5-13, O")
     phase_latent_large(pt, dev, launches, card_line)
-    phase_large_n(pt, dev, launches, card_line)
+    large64 = phase_large_n(pt, dev, launches, card_line)
     clock.lap("14-15")
     phase_mol(pt, dev, launches, card_line, pnmol)
     phase_smoothing(pt, dev, launches, card_line)
@@ -3495,6 +4059,7 @@ def main():
     clock.lap("E")
     phase_sharded_steady_gloo(pt, dev, launches, card_line, steady)
     clock.lap("E2")
+    steady64 = {key: steady[key] for key in ("heat", "bare")}  # for phase X5
     del steady
     steady_large = phase_steady_large(pt, dev, launches, card_line)
     clock.lap("F")
@@ -3517,6 +4082,16 @@ def main():
     phase_latent_rung(pt, dev, launches, card_line, *LATENT_RUNGS[0])
     phase_scale_gram(pt, dev, launches, card_line)
     clock.lap("S3 (scale demo)")
+    panel_f32 = phase_f32_kernels(tq, dev)
+    f32_heat, f32_plain = phase_f32_bench(pt, tq, dev, launches, card_line, heat, pnmol)
+    phase_f32_latent_and_r_form(pt, tq, launches, f32_heat, f32_plain, heat, latent_plain,
+                                card_line)
+    del f32_heat, f32_plain
+    clock.lap("X0-X3 (f32 kernels, the f32 bench configuration, latent, R form)")
+    phase_f32_large(pt, dev, launches, card_line, large64)
+    clock.lap("X4 (f32 at N=1e4)")
+    phase_f32_steady(pt, dev, launches, card_line, steady64)
+    clock.lap("X5 (f32 steady state)")
     check("jax" not in sys.modules and "pnmol_tpu" not in sys.modules, "JAX was imported")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -3535,6 +4110,8 @@ def main():
             "launches": launches.totals[name],
             **{key: measured[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
+            # phase X0's f32 instantiation at the f32 solver shapes
+            **({"f32": panel_f32[name]} if name in panel_f32 else {}),
         })
     print(json.dumps({"kernels": records}))
     print(card_line)

@@ -74,9 +74,17 @@ and latent steps and solves, the batched dt sweep), and the comm model of
 
 Every constructor that makes tensors takes ``device=``; nothing picks a
 device on its own. This package imports ``torch`` and never ``jax``.
+The dtype is float64 unless ``PNMOL_TPU_X32=1`` is set before the import
+(or ``config.enable_x64(False)`` is called): then every constructor builds
+float32 tensors and the kernels launch their f32 instantiations, the
+configuration the JAX package's bench times (:mod:`pnmol_tpu_torch.config`).
 """
 
-from pnmol_tpu_torch import config, diffops, discretize, kernels, mesh, ops
+from pnmol_tpu_torch import config
+
+config.setup()
+
+from pnmol_tpu_torch import diffops, discretize, kernels, mesh, ops
 from pnmol_tpu_torch import models
 from pnmol_tpu_torch import models as pde  # alias, as in pnmol_tpu
 from pnmol_tpu_torch import interop, odetools, parallel, utils

@@ -13,6 +13,7 @@ records (``bench_artifacts/``, ``experiments/``, ``docs/``).
 """
 
 import argparse
+import contextlib
 import json
 import pathlib
 import time
@@ -168,6 +169,20 @@ def write_artifact(driver, payload, out=ARTIFACT_ROOT):
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(payload, indent=1) + "\n")
     return path
+
+
+@contextlib.contextmanager
+def precision_policy(dtype):
+    """Build and run under the package's float32 or float64 policy
+    (:func:`pnmol_tpu_torch.config.enable_x64`), the policy before it
+    restored after it: the JAX drivers' ``PNMOL_TPU_X32`` legs."""
+    from pnmol_tpu_torch import config
+
+    previous = config.enable_x64(dtype == torch.float64)
+    try:
+        yield
+    finally:
+        config.enable_x64(previous)
 
 
 def run_leg(name, fn, *args, **kwargs):

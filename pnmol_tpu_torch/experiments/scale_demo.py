@@ -1,7 +1,9 @@
 """Scale demonstration: the step loop at N = 1e4 and the latent N-ladder,
 and the radial Gram kernel against its plain version.
 
-Counterpart of ``experiments/scale_demo.py``, in f64 on either device.
+Counterpart of ``experiments/scale_demo.py``, on either device, in the
+package's precision policy: f64, or with ``PNMOL_TPU_X32=1`` f32 end to end
+(mesh, FD assembly, prior, init and steps), as the JAX driver runs.
 ``step`` builds a problem (1-D heat with the dx-adapted FD kernel, 2-D heat
 or 3-D advection-diffusion, the JAX driver's recipes), initializes the
 white or latent solver, frees everything the step does not read, and runs
@@ -15,7 +17,8 @@ times the Matern52 Gram of seeded uniform 2-D points through the kernel of
         [--dim 1|2|3] [--solver white|latent] [--steps 4] [--fused]
         [--propagate-band banded|interleaved] [--factorization householder|plain]
         [--steady-state [--steady-iters K] [--steady-tol T] [--steady-chunk C]
-        [--steady-no-seed]] [--dt 1e-3] [--device cuda|cpu] [--out DIR]
+        [--steady-no-seed] [--steady-dtype float64]] [--dt 1e-3]
+        [--device cuda|cpu] [--out DIR]
     python -m pnmol_tpu_torch.experiments.scale_demo gram [--n 10000]
         [--input-scale 5.0] [--device cuda|cpu] [--out DIR]
 
@@ -60,12 +63,15 @@ def make_problem(dim, n_side, device, tmax=1.0):
         tmax=tmax, velocity=[1.0, 0.5, 0.25], diffusion_rate=0.05, device=device)
 
 
-def steady_options(steady_state, iters=None, tol=None, chunk=None, seed=True):
-    """The solver's ``steady_state`` argument from the command line's."""
+def steady_options(steady_state, iters=None, tol=None, chunk=None, seed=True, dtype=None):
+    """The solver's ``steady_state`` argument from the command line's;
+    ``dtype`` runs the Riccati recursion in that type (``"float64"`` on an
+    f32 problem)."""
     if not steady_state:
         return False
     opts = {key: value for key, value in
-            (("max_iters", iters), ("tol", tol), ("chunk_iters", chunk)) if value is not None}
+            (("max_iters", iters), ("tol", tol), ("chunk_iters", chunk), ("dtype", dtype))
+            if value is not None}
     if not seed:
         opts["seed"] = False
     return opts or True
@@ -109,7 +115,7 @@ def advance(step_fn, mean, cov, num_steps, dt):
 
 def step(device="cuda", *, n=100, nu=1, steps=4, fused=False, dim=2, factorization="plain",
          solver_name="white", propagate_band=None, steady_state=False, steady_iters=None,
-         steady_tol=None, steady_chunk=None, steady_seed=True, dt=1e-3):
+         steady_tol=None, steady_chunk=None, steady_seed=True, steady_dtype=None, dt=1e-3):
     """The JAX driver's ``demo_step`` record."""
     device = common.device_of(device)
     on_card = device.type == "cuda"
@@ -117,7 +123,8 @@ def step(device="cuda", *, n=100, nu=1, steps=4, fused=False, dim=2, factorizati
         torch.cuda.reset_peak_memory_stats(device)
     heat, build_s = common.timed(make_problem, dim, n, device)
     d = heat.L.shape[0]
-    opts = steady_options(steady_state, steady_iters, steady_tol, steady_chunk, steady_seed)
+    opts = steady_options(steady_state, steady_iters, steady_tol, steady_chunk, steady_seed,
+                          steady_dtype)
     solver = make_solver(solver_name, nu=nu, dt=dt, factorization=factorization, fused=fused,
                          propagate_band=propagate_band, steady_state=opts)
     state, init_s = common.timed(solver.initialize, heat)
@@ -227,6 +234,10 @@ def main(argv=None):
                    help="Riccati iterations between convergence checks")
     p.add_argument("--steady-no-seed", action="store_true",
                    help="no doubling (SDA) seed: converge the recursion from scratch")
+    p.add_argument("--steady-dtype", default=None, choices=("float64",),
+                   help="run the Riccati recursion in f64 and cast the frozen blocks back "
+                        "(an f32 problem under PNMOL_TPU_X32=1: its f32 seed has no "
+                        "Cholesky factor at N = 512)")
     p.add_argument("--dt", type=float, default=1e-3)
     p.add_argument("--input-scale", type=float, default=5.0)
     p.add_argument("--factorization", choices=("householder", "plain"), default="plain")
@@ -239,7 +250,7 @@ def main(argv=None):
                       propagate_band=args.propagate_band, steady_state=args.steady_state,
                       steady_iters=args.steady_iters, steady_tol=args.steady_tol,
                       steady_chunk=args.steady_chunk, steady_seed=not args.steady_no_seed,
-                      dt=args.dt)
+                      steady_dtype=args.steady_dtype, dt=args.dt)
     else:
         record = gram(args.device, n=args.n, input_scale=args.input_scale)
     print(json.dumps(record), flush=True)

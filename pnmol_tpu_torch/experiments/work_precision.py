@@ -1,8 +1,8 @@
 """Work-precision: accuracy and calibration against seconds at constant dt.
 
-Counterpart of ``experiments/tpu_work_precision.py``, in f64 on either
-device (the JAX driver's f32 policy stays behind). Figure 4's constant-dt
-ladder on the same problems, priors and step sizes:
+Counterpart of ``experiments/tpu_work_precision.py`` on either device, in
+f64 or, as the JAX driver's device legs run, in f32 end to end. Figure 4's
+constant-dt ladder on the same problems, priors and step sizes:
 
 * ``lv``: the Lotka-Volterra reaction-diffusion system (dx 0.01, tmax 1,
   stencils 3/4) through ``SemiLinearWhiteNoiseEK1`` with a ``duplicate``
@@ -12,20 +12,23 @@ ladder on the same problems, priors and step sizes:
   ``LinearWhiteNoiseEK1``, against LSODA on its interior MOL system;
 
 each at nu = 2 with prior ``Matern52() + WhiteNoise()``. A leg is a problem
-on a device, ``<problem>_<cpu|cuda>``. Every row has the relative RMSE of
+on a device, ``<problem>_<cpu|cuda>``, in f64; ``<problem>_<cpu|cuda>_f32``
+builds and solves it under the f32 policy (``PNMOL_TPU_X32``'s, switched
+for the leg alone). Every row has its ``dtype``, the relative RMSE of
 the interior solution and the chi^2 calibration (host f64), the steps, the
 seconds of one ``simulate_final_state`` (after one untimed solve at the
 leg's first dt), the steps/s, and the kernel launches it made. On the card
 the solvers take the kernel route (``"householder"``)::
 
     python -m pnmol_tpu_torch.experiments.work_precision
-        [--legs lv_cuda,heat_512_cuda,heat_2048_cuda] [--recompute-reference]
-        [--out DIR]
+        [--legs lv_cuda,heat_512_cuda,heat_2048_cuda,lv_cuda_f32,...]
+        [--recompute-reference] [--out DIR]
 
 The references are read from the JAX driver's committed
 ``experiments/results/wp_ref_*.npy`` (as data); ``--recompute-reference``
 solves them with the port's LSODA and holds them to the committed ones
-(:data:`REFERENCE_RTOL`). Every leg's status goes into the record
+(:data:`REFERENCE_RTOL`); references are f64 in every leg. Every leg's
+status goes into the record
 (``<out>/work_precision/work_precision.json``), a failed leg makes the run
 exit non-zero, and no earlier run's file is merged.
 """
@@ -51,6 +54,8 @@ HEAT_DTS_CPU_2048 = [0.1, 0.05]
 NU = 2
 LV_DX, LV_SCALE = 0.01, 4
 DEFAULT_LEGS = ("lv_cuda", "heat_512_cuda", "heat_2048_cuda")
+# the JAX driver's device legs: the same problems in f32 end to end
+F32_LEGS = ("lv_cuda_f32", "heat_512_cuda_f32", "heat_2048_cuda_f32")
 REFERENCES = common.REPO / "experiments" / "results"
 # a recomputed reference against the committed one, max |diff| / max |ref|,
 # by problem: both are LSODA at rtol = atol = 1e-10, on operators that the
@@ -60,19 +65,26 @@ REFERENCES = common.REPO / "experiments" / "results"
 # 1.3e-9, heat_2048 7.7e-9)
 REFERENCE_RTOL = {"lv": 1e-6, "heat": 1e-7}
 KERNELS = {"panel_lq": qr_householder.panel_lq, "leaf_lq": qr_householder.leaf_lq}
-NOTE = ("figure4-style constant-dt work-precision in f64 on the port; rmse_rel is the "
-        "relative RMSE of the interior solution against an LSODA rtol=1e-10 reference; chi2 is "
-        "the calibration statistic (f64 host math); seconds is one simulate_final_state")
+NOTE = ("figure4-style constant-dt work-precision on the port, each row in its dtype; "
+        "rmse_rel is the relative RMSE of the interior solution against an LSODA rtol=1e-10 "
+        "reference; chi2 is the calibration statistic (f64 host math); seconds is one "
+        "simulate_final_state")
 
 
 def parse_leg(leg):
     """``"heat_512_cuda"`` -> ``("heat", 512, "cuda")``; ``"lv_cpu"`` ->
-    ``("lv", None, "cpu")``."""
-    parts = leg.split("_")
+    ``("lv", None, "cpu")``; a ``_f32`` suffix (:func:`leg_dtype`) parses
+    as the leg without it."""
+    parts = leg.removesuffix("_f32").split("_")
     if parts[-1] not in ("cpu", "cuda") or parts[0] not in ("lv", "heat") or (
             len(parts) != (3 if parts[0] == "heat" else 2)):
         raise ValueError(f"unknown leg {leg!r}: lv_<cpu|cuda> or heat_<n>_<cpu|cuda>")
     return parts[0], int(parts[1]) if parts[0] == "heat" else None, parts[-1]
+
+
+def leg_dtype(leg):
+    """The dtype a leg builds and solves in: f32 for a ``_f32`` leg."""
+    return torch.float32 if leg.endswith("_f32") else torch.float64
 
 
 def default_dts(problem, n, platform):
@@ -117,8 +129,12 @@ class Problem:
             self.tag = f"heat_n{n}"
 
     def reference_ivp(self):
+        """The IVP LSODA solves, in the policy's dtype (an f32 problem's
+        is built anew)."""
         if self.name == "lv":
             return lotka_volterra(LV_DX / LV_SCALE, self.device).to_ivp()
+        if self.pde.L.dtype != pt.config.default_dtype():
+            return heat(self.n, self.device).to_ivp()
         return self.pde.to_ivp()
 
     def reference_values(self, y_ref):
@@ -212,14 +228,17 @@ def run_leg(leg, *, dts=None, recompute_reference=False):
     untimed solve at the first dt, then a row for each of ``dts`` (default:
     the JAX driver's ladder for the problem and device)."""
     name, n, platform = parse_leg(leg)
+    dtype = leg_dtype(leg)
     device = common.device_of(platform)
     factorization = common.default_factorization(device)
     dts = default_dts(name, n, platform) if dts is None else list(dts)
-    problem = Problem(name, n, device)
-    u_ref, ref_record = reference(problem, recompute_reference)
-    _, warmup_seconds = common.timed(
-        problem.solver(dts[0], factorization).simulate_final_state, problem.pde)
-    rows = [solve_row(problem, dt, u_ref, factorization, platform) for dt in dts]
+    with common.precision_policy(dtype):
+        problem = Problem(name, n, device)
+        with common.precision_policy(torch.float64):  # the reference, in f64
+            u_ref, ref_record = reference(problem, recompute_reference)
+        _, warmup_seconds = common.timed(
+            problem.solver(dts[0], factorization).simulate_final_state, problem.pde)
+        rows = [solve_row(problem, dt, u_ref, factorization, platform) for dt in dts]
     return {"leg": leg, "device": common.device_name(device), "reference": ref_record,
             "warmup_seconds": warmup_seconds, "rows": rows}
 
@@ -253,7 +272,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                    help="comma-separated legs: lv_<dev>, heat_512_<dev>, heat_2048_<dev>; "
-                        "dev cpu or cuda")
+                        "dev cpu or cuda; a _f32 suffix runs the leg in f32 end to end")
     p.add_argument("--recompute-reference", action="store_true",
                    help="solve the references with the port's LSODA and hold them to the "
                         "committed ones")

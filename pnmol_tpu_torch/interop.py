@@ -4,7 +4,9 @@ Hands a problem, a white- or latent-solver cache, a steady-state cache, a
 PDE- or ODE-filter state, or a rank's block of a sharded array that another
 implementation (for example the JAX package, converted with ``np.asarray``)
 produced to the port, so that both run from the same numbers. Takes NumPy
-arrays only; everything lands as float64 on ``device``.
+arrays only; float32 and float64 arrays land at their own dtype on
+``device`` (the mesh points at the problem's), anything else at the
+policy's (:func:`pnmol_tpu_torch.config.default_dtype`).
 """
 
 import numpy as np
@@ -18,7 +20,15 @@ from pnmol_tpu_torch.solvers import latent, pdefilter, white
 
 
 def _tensor(array, device):
-    return torch.tensor(np.asarray(array), dtype=config.default_dtype(), device=device)
+    """A tensor on ``device`` at the array's own dtype where that is float32
+    or float64 (so that f32 arrays of the f32 policy stay f32), else at the
+    policy's."""
+    array = np.asarray(array)
+    dtype = _FLOAT_DTYPES.get(array.dtype, config.default_dtype())
+    return torch.tensor(array, dtype=dtype, device=device)
+
+
+_FLOAT_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
 def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device,
@@ -45,8 +55,9 @@ def discretized_problem(*, L, E_sqrtm, B, R_sqrtm, y0, points, t0, tmax, device,
         diffop=None, diffop_scale=1.0, bbox=bbox[0] if bbox.shape[0] == 1 else bbox,
         t0=t0, tmax=tmax, y0_fun=None, **extra,
     )
-    pde.mesh_spatial = mesh.RectangularMesh(np.asarray(points), device=device)
     pde.L = _tensor(L, device)
+    pde.mesh_spatial = mesh.RectangularMesh(np.asarray(points), device=device,
+                                            dtype=pde.L.dtype)
     pde.E_sqrtm = _tensor(E_sqrtm, device)
     pde.B = _tensor(B, device)
     pde.R_sqrtm = _tensor(R_sqrtm, device)

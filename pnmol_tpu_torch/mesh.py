@@ -9,6 +9,7 @@ float64 host copy of the bounding box. Results become tensors on the mesh's
 device.
 """
 
+import abc
 from functools import cached_property
 
 import numpy as np
@@ -39,55 +40,33 @@ def _host_bbox(points_host):
     return np.stack((points_host.min(axis=0), points_host.max(axis=0)), axis=-1)
 
 
-class RectangularMesh:
-    """Tensor-product grid over an axis-aligned bounding box.
+class Mesh(abc.ABC):
+    """Scattered points: ``points`` (N, dim) on ``device``, in ``dtype``
+    (the policy's, :func:`pnmol_tpu_torch.config.default_dtype`, unless
+    given), and a float64 host copy taken BEFORE that cast, which serves the
+    setup geometry (neighbour search, stencil offsets, fill distance): f32
+    differences of nearby coordinates would lose most of their digits."""
 
-    ``points`` (N, dim) live on ``device``; float64 host copies of the points
-    and of ``bbox`` (dim, 2) serve the setup geometry (neighbour search,
-    boundary classification, normals). Without ``bbox`` the points' own
-    bounding box is taken.
-    """
-
-    def __init__(self, points, *, device, bbox=None):
+    def __init__(self, points, *, device, dtype=None):
         pts_np = np.asarray(points, dtype=np.float64)
         self._points_host = pts_np
-        self._bbox_host = (_host_bbox(pts_np) if bbox is None
-                           else np.asarray(bbox, dtype=np.float64).reshape(-1, 2))
         self.device = torch.device(device)
-        self.points = torch.tensor(pts_np, dtype=config.default_dtype(), device=self.device)
+        self.points = torch.tensor(pts_np, dtype=dtype or config.default_dtype(),
+                                   device=self.device)
 
-    @classmethod
-    def from_bbox_1d(cls, bbox, *, device, step=None, num=None):
-        bbox = np.asarray(bbox, dtype=np.float64)
-        if (step is None) == (num is None):
-            raise ValueError("Provide exactly one of step or num.")
-        if step is not None:
-            num = int((bbox[1] - bbox[0]) / step) + 1
-        grid = np.linspace(bbox[0], bbox[1], num=num, endpoint=True)
-        return cls(grid.reshape(-1, 1), device=device)
+    @abc.abstractmethod
+    def neighbours(self, point, num):
+        raise NotImplementedError
 
-    @classmethod
-    def from_bbox_nd(cls, bbox, *, device, steps=None, nums=None):
-        """Tensor-product grid over an n-dimensional bounding box (dim, 2),
-        built in float64 on the host (``meshgrid`` in "ij" order)."""
-        bbox = np.asarray(bbox, dtype=np.float64).reshape(-1, 2)
-        dim = bbox.shape[0]
-        if (steps is None) == (nums is None):
-            raise ValueError("Provide exactly one of steps or nums.")
-        if steps is not None:
-            nums = tuple(int((bbox[d, 1] - bbox[d, 0]) / steps[d]) + 1 for d in range(dim))
-        axes = [np.linspace(bbox[d, 0], bbox[d, 1], num=nums[d], endpoint=True)
-                for d in range(dim)]
-        grids = np.meshgrid(*axes, indexing="ij")
-        return cls(np.stack([g.reshape(-1) for g in grids], axis=-1), device=device)
+    @property
+    @abc.abstractmethod
+    def boundary(self):
+        raise NotImplementedError
 
-    @classmethod
-    def from_bbox_2d(cls, bbox, *, device, steps=None, nums=None):
-        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
-
-    @classmethod
-    def from_bbox_3d(cls, bbox, *, device, steps=None, nums=None):
-        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
+    @property
+    @abc.abstractmethod
+    def interior(self):
+        raise NotImplementedError
 
     def __len__(self):
         return self.points.shape[0]
@@ -125,6 +104,55 @@ class RectangularMesh:
         d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
         np.fill_diagonal(d2, np.inf)
         return float(np.sqrt(d2.min(axis=1).max()))
+
+
+class RectangularMesh(Mesh):
+    """Tensor-product grid over an axis-aligned bounding box.
+
+    A float64 host copy of ``bbox`` (dim, 2) serves boundary classification
+    and normals, which compare the host points with it exactly: a bbox in
+    the policy dtype (f32) would drop every face whose bound f32 does not
+    represent (0.1, 0.3), and with it the face's boundary condition.
+    Without ``bbox`` the points' own bounding box is taken.
+    """
+
+    def __init__(self, points, *, device, bbox=None, dtype=None):
+        super().__init__(points, device=device, dtype=dtype)
+        self._bbox_host = (_host_bbox(self._points_host) if bbox is None
+                           else np.asarray(bbox, dtype=np.float64).reshape(-1, 2))
+
+    @classmethod
+    def from_bbox_1d(cls, bbox, *, device, step=None, num=None):
+        bbox = np.asarray(bbox, dtype=np.float64)
+        if (step is None) == (num is None):
+            raise ValueError("Provide exactly one of step or num.")
+        if step is not None:
+            num = int((bbox[1] - bbox[0]) / step) + 1
+        grid = np.linspace(bbox[0], bbox[1], num=num, endpoint=True)
+        return cls(grid.reshape(-1, 1), device=device)
+
+    @classmethod
+    def from_bbox_nd(cls, bbox, *, device, steps=None, nums=None):
+        """Tensor-product grid over an n-dimensional bounding box (dim, 2),
+        built in float64 on the host (``meshgrid`` in "ij" order)."""
+        bbox = np.asarray(bbox, dtype=np.float64).reshape(-1, 2)
+        dim = bbox.shape[0]
+        if (steps is None) == (nums is None):
+            raise ValueError("Provide exactly one of steps or nums.")
+        if steps is not None:
+            nums = tuple(int((bbox[d, 1] - bbox[d, 0]) / steps[d]) + 1 for d in range(dim))
+        axes = [np.linspace(bbox[d, 0], bbox[d, 1], num=nums[d], endpoint=True)
+                for d in range(dim)]
+        grids = np.meshgrid(*axes, indexing="ij")
+        return cls(np.stack([g.reshape(-1) for g in grids], axis=-1), device=device)
+
+    @classmethod
+    def from_bbox_2d(cls, bbox, *, device, steps=None, nums=None):
+        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
+
+    @classmethod
+    def from_bbox_3d(cls, bbox, *, device, steps=None, nums=None):
+        return cls.from_bbox_nd(bbox, device=device, steps=steps, nums=nums)
 
     def neighbours(self, point, num):
         """k nearest mesh points for each query point (host-side, setup only).

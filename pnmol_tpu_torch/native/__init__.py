@@ -37,6 +37,16 @@ def build() -> pathlib.Path:
         return cuda_build.compile_library(_COMPILER, "knn", _SOURCE, variants[1])
 
 
+def available() -> bool:
+    """Whether the k-NN library builds here (the compiler's failure is what
+    :func:`knn` raises)."""
+    try:
+        build()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build()))

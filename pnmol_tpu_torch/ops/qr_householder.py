@@ -14,7 +14,9 @@ A block is factorized by one of two routes:
   merged into the block's.
 
 Either way the rows below take the block's reflectors as one rank-``block``
-trailing update ``W - (W V^T) T V``, two plain matrix products. The sweep is
+trailing update ``W - (W V^T) T V``, two plain matrix products, at the
+hooks' ``precision`` (:func:`matmul_precision`: full FP32, or TF32 for an
+f32 sweep on the card). The sweep is
 the plain shrinking block loop (the JAX ``superblocks = nb`` form), in place
 on one work buffer: after each block the work view drops the block's rows
 and columns, so every block starts at diagonal offset 0, and a banded input
@@ -42,6 +44,7 @@ records through a slab, all three raise on either device, naming the plain
 factorization that differentiates.
 """
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -274,6 +277,37 @@ leaf_lq.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# the trailing updates' matrix-product precision, the JAX hooks' argument:
+# "highest" (the default) runs full-FP32 cuBLAS products; "high" and
+# "default" let an f32 sweep on the card take TF32 tensor-core products, the
+# card's counterpart of the TPU's fewer bf16 passes. f64, and the CPU, have
+# one precision, as in the JAX package.
+PRECISIONS = ("default", "high", "highest")
+
+
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision, tensor):
+    """Scope the trailing updates of one sweep on ``tensor`` to
+    ``precision``: for a CUDA float32 ``tensor`` cuBLAS may take TF32
+    exactly where ``precision`` is not ``"highest"``, and the setting before
+    the sweep comes back after it; otherwise nothing changes."""
+    _check_precision(precision)
+    if not (tensor.is_cuda and tensor.dtype == torch.float32):
+        yield
+        return
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+
+
 def _reflectors(lv, off=0):
     """Reflector rows (unit diagonal explicit) of a panel output whose
     diagonal starts at lane ``off``."""
@@ -317,35 +351,37 @@ def _leaf_route(blk, leaf):
     return lv, V, tT
 
 
-def _lq_in_place(work, *, leaf, block, band):
+def _lq_in_place(work, *, leaf, block, band, precision="highest"):
     """:func:`blocked_lq_l`'s sweep on ``work``, which it overwrites."""
     Nr, M = work.shape
     if M < Nr:
         raise ValueError(f"blocked_lq_l requires cols >= rows, got {tuple(work.shape)}")
     leaves = not panel_takes_rows(block, work.element_size())
     done = 0
-    while done < Nr:
-        b = min(block, Nr - done)
-        # the block's window: every column past it is an exact zero of the
-        # block's rows (band=), so the reflectors never touch it
-        win = M - done
-        if band is not None:
-            win = min(win, band[0] + (band[1] - 1) * done + band[1] * b)
-        blk = work[done:done + b, done:done + win].contiguous()
-        if leaves:
-            lv, V, tT = _leaf_route(blk, leaf)
-        else:
-            lv, tT = panel_lq(blk, 0)
-            V = _reflectors(lv)
-        work[done:done + b, done:done + b] = lv[:, :b]
-        rest = work[done + b:, done:done + win]
-        if rest.shape[0]:  # in place; its first b columns become L's
-            rest.addmm_((rest @ V.T) @ tT.T, V, alpha=-1)
-        done += b
+    with matmul_precision(precision, work):
+        while done < Nr:
+            b = min(block, Nr - done)
+            # the block's window: every column past it is an exact zero of
+            # the block's rows (band=), so the reflectors never touch it
+            win = M - done
+            if band is not None:
+                win = min(win, band[0] + (band[1] - 1) * done + band[1] * b)
+            blk = work[done:done + b, done:done + win].contiguous()
+            if leaves:
+                lv, V, tT = _leaf_route(blk, leaf)
+            else:
+                lv, tT = panel_lq(blk, 0)
+                V = _reflectors(lv)
+            work[done:done + b, done:done + b] = lv[:, :b]
+            rest = work[done + b:, done:done + win]
+            if rest.shape[0]:  # in place; its first b columns become L's
+                rest.addmm_((rest @ V.T) @ tT.T, V, alpha=-1)
+            done += b
     return torch.tril(work[:, :Nr])
 
 
-def blocked_lq_l(W, *, leaf: int = 32, block: int = 128, band=None):
+def blocked_lq_l(W, *, leaf: int = 32, block: int = 128, band=None,
+                 precision: str = "highest"):
     """Lower-triangular L with ``L L^T = W W^T`` from one Householder LQ of
     wide ``W`` (rows <= cols), shape (rows, rows).
 
@@ -364,10 +400,12 @@ def blocked_lq_l(W, *, leaf: int = 32, block: int = 128, band=None):
     block's work is then windowed to its rows' support and the columns past
     it stay untouched, which changes the result only by rounding.
 
+    ``precision`` is the trailing updates' (:func:`matmul_precision`).
+
     The signs of L's diagonal follow the reflectors' convention (``beta =
     -sign(alpha) ||x||``), as in :func:`pnmol_tpu.ops.qr_householder.blocked_lq_l`.
     """
-    return _lq_in_place(W.clone(), leaf=leaf, block=block, band=band)
+    return _lq_in_place(W.clone(), leaf=leaf, block=block, band=band, precision=precision)
 
 
 def _gain_solve_lower(L1, L21):
@@ -391,16 +429,19 @@ def _lq_blocks(top, bottom, m, band, sweep):
 
 
 def make_householder_update_from_products(*, leaf: int = 32, block: int = 128,
-                                          pair_columns: bool = False):
+                                          pair_columns: bool = False,
+                                          precision: str = "highest"):
     """Householder-LQ drop-in for the sqrt update from products:
     ``(HC, C, R) -> (posterior_factor, gain, innovation_factor)`` through the
-    LQ of ``[[HC, R], [C, 0]]`` (sweep options as in :func:`blocked_lq_l`).
+    LQ of ``[[HC, R], [C, 0]]`` (sweep options and ``precision`` as in
+    :func:`blocked_lq_l`).
     ``.blocks`` returns the raw factor blocks ``(L3, L21, L1)`` without the
     gain solve; ``.blocks_banded`` the same for a LOWER-TRIANGULAR ``R``
     (true for every measurement-noise factor of the solvers), whose
     pre-array rows end at column ``D + i``: ``band=(D + 1, 1)``."""
     _check_pair_columns(pair_columns)
-    sweep = dict(leaf=leaf, block=block)
+    _check_precision(precision)
+    sweep = dict(leaf=leaf, block=block, precision=precision)
 
     def _blocks(HC, C, meascov_sqrtm, band):
         m, D = HC.shape
@@ -424,10 +465,11 @@ def make_householder_update_from_products(*, leaf: int = 32, block: int = 128,
 
 
 def make_householder_propagate(*, leaf: int = 32, block: int = 128,
-                               pair_columns: bool = False):
+                               pair_columns: bool = False,
+                               precision: str = "highest"):
     """Householder-LQ drop-in for the sqrt propagate: the lower factor of
-    ``S1 S1^T + S2 S2^T`` from one LQ of ``[S1 S2]`` (sweep options as in
-    :func:`blocked_lq_l`), with two structured variants:
+    ``S1 S1^T + S2 S2^T`` from one LQ of ``[S1 S2]`` (sweep options and
+    ``precision`` as in :func:`blocked_lq_l`), with two structured variants:
 
     * ``.banded(S1, S2)`` for a LOWER-TRIANGULAR ``S2`` (the point-major
       process-noise factor): row ``r`` ends at column ``D1 + r``,
@@ -438,7 +480,8 @@ def make_householder_propagate(*, leaf: int = 32, block: int = 128,
       ``<= 2 r + q``, ``band=(2 q, 2)``.
     """
     _check_pair_columns(pair_columns)
-    sweep = dict(leaf=leaf, block=block)
+    _check_precision(precision)
+    sweep = dict(leaf=leaf, block=block, precision=precision)
 
     def propagate(S1, S2):
         return _lq_in_place(torch.cat((S1, S2), dim=1), band=None, **sweep)
@@ -459,12 +502,13 @@ def make_householder_propagate(*, leaf: int = 32, block: int = 128,
 
 
 def make_householder_lq_factorization(*, leaf: int = 32, block: int = 128,
-                                      pair_columns: bool = False):
+                                      pair_columns: bool = False,
+                                      precision: str = "highest"):
     """A ``factorization=`` hook for the white-noise step: the fused
     pre-array ``W = [[HACl, HQl, E], [ACl, Ql, 0]]`` factorized by
-    :func:`blocked_lq_l` (sweep options as there). Same contract as the
-    fused predict-update ``(HACl, ACl, HQl, Ql, R) -> (posterior_factor,
-    gain, innovation_factor)``; ``.blocks`` returns ``(L3, L21, L1)``
+    :func:`blocked_lq_l` (sweep options and ``precision`` as there). Same
+    contract as the fused predict-update ``(HACl, ACl, HQl, Ql, R) ->
+    (posterior_factor, gain, innovation_factor)``; ``.blocks`` returns ``(L3, L21, L1)``
     without the gain solve (the step only needs ``K z = L21 (L1^{-1} z)``),
     ``.blocks_banded`` the same for a LOWER-TRIANGULAR ``R``
     (``band=(2D + 1, 1)``).
@@ -476,7 +520,8 @@ def make_householder_lq_factorization(*, leaf: int = 32, block: int = 128,
     the initial factor for the interleaved propagate.
     """
     _check_pair_columns(pair_columns)
-    sweep = dict(leaf=leaf, block=block)
+    _check_precision(precision)
+    sweep = dict(leaf=leaf, block=block, precision=precision)
 
     def _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, band):
         m, D = HACl.shape
@@ -593,7 +638,7 @@ def _apply_wy_transpose(V, T, A):
     return A - V @ (T.T @ (V.T @ A))
 
 
-def blocked_qr_r(A, *, leaf: int = 32, block: int = 128):
+def blocked_qr_r(A, *, leaf: int = 32, block: int = 128, precision: str = "highest"):
     """Upper-triangular R of a Householder QR of tall ``A`` (M >= N), shape
     (N, N), with ``R^T R = A^T A``.
 
@@ -605,11 +650,18 @@ def blocked_qr_r(A, *, leaf: int = 32, block: int = 128):
     take one trailing update. The reflector convention (``beta =
     -sign(alpha) ||x||``) is the JAX package's, so R agrees with
     :func:`pnmol_tpu.ops.qr_householder.blocked_qr_r` entry by entry where
-    the columns are independent.
+    the columns are independent. ``precision`` is the updates' matrix
+    products' (:func:`matmul_precision`).
     """
     M, N = A.shape
     if M < N:
         raise ValueError(f"blocked_qr_r requires M >= N, got {tuple(A.shape)}")
+    with matmul_precision(precision, A):
+        return _qr_r_sweep(A, M, N, leaf=leaf, block=block)
+
+
+def _qr_r_sweep(A, M, N, *, leaf, block):
+    """:func:`blocked_qr_r`'s sweep."""
     block = max(block, leaf)
     R = A.new_zeros((N, N))
     work = A
@@ -644,10 +696,12 @@ def blocked_qr_r(A, *, leaf: int = 32, block: int = 128):
     return R
 
 
-def make_householder_factorization(*, leaf: int = 32, block: int = 128):
+def make_householder_factorization(*, leaf: int = 32, block: int = 128,
+                                   precision: str = "highest"):
     """A ``factorization=`` hook for the white-noise step: the tall
     pre-array ``[[HACl^T, ACl^T], [HQl^T, Ql^T], [E^T, 0]]`` of shape
-    ``(2D + m, m + D)`` factorized by :func:`blocked_qr_r`.
+    ``(2D + m, m + D)`` factorized by :func:`blocked_qr_r` (its options
+    and ``precision``).
 
     The legacy gain contract of the JAX hook
     (:func:`pnmol_tpu.ops.qr_householder.make_householder_factorization`):
@@ -655,13 +709,15 @@ def make_householder_factorization(*, leaf: int = 32, block: int = 128):
     innovation_factor)`` = ``(R3^T, (R1^{-1} R2)^T, R1^T)``. It has no
     ``.blocks``, so the step updates the mean with the explicit gain.
     """
+    _check_precision(precision)
 
     def factorization(HACl, ACl, HQl, Ql, meascov_sqrtm):
         m, D = HACl.shape
         top = torch.cat((HACl.T, ACl.T), dim=1)
         mid = torch.cat((HQl.T, Ql.T), dim=1)
         bottom = torch.cat((meascov_sqrtm.T, HACl.new_zeros((m, D))), dim=1)
-        R = blocked_qr_r(torch.cat((top, mid, bottom), dim=0), leaf=leaf, block=block)
+        R = blocked_qr_r(torch.cat((top, mid, bottom), dim=0), leaf=leaf, block=block,
+                         precision=precision)
         R1, R2, R3 = R[:m, :m], R[:m, m:], R[m:, m:]
         gain = torch.linalg.solve_triangular(R1, R2, upper=True).T
         return R3.T, gain, R1.T

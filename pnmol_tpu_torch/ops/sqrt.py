@@ -41,8 +41,12 @@ def update_sqrt_from_products(HC, C, meascov_sqrtm):
     :func:`update_sqrt_from_products_blocks` with the gain ``(R1^{-1}
     R2)^T`` from one triangular solve (``R1 = L1^T``, ``R2 = L21^T``)."""
     posterior, L21, L1 = update_sqrt_from_products_blocks(HC, C, meascov_sqrtm)
-    gain = torch.linalg.solve_triangular(L1.T, L21.T, upper=True).T
-    return posterior, gain, L1
+    return posterior, _gain(L1, L21), L1
+
+
+def _gain(L1, L21):
+    """``L21 L1^{-1}`` by one triangular solve."""
+    return torch.linalg.solve_triangular(L1.T, L21.T, upper=True).T
 
 
 def update_sqrt(transition_matrix, cov_cholesky, meascov_sqrtm):
@@ -85,3 +89,18 @@ def fused_predict_update_blocks(HACl, ACl, HQl, Ql, meascov_sqrtm):
     bottom = torch.cat((meascov_sqrtm.T, HACl.new_zeros((m, D))), dim=1)
     R = triu_qr(torch.cat((top, mid, bottom), dim=0))
     return R[m:, m:].T, R[:m, m:].T, R[:m, :m].T
+
+
+def fused_predict_update(HACl, ACl, HQl, Ql, meascov_sqrtm):
+    """:func:`fused_predict_update_blocks` with the gain: ``(posterior
+    (D, D), gain (D, m), innovation factor (m, m))``, the gain ``(R1^{-1}
+    R2)^T`` from one triangular solve (the JAX package's hook contract)."""
+    posterior, L21, L1 = fused_predict_update_blocks(HACl, ACl, HQl, Ql, meascov_sqrtm)
+    return posterior, _gain(L1, L21), L1
+
+
+def batched_update_sqrt(batched_transition_matrix, batched_cov_cholesky):
+    """Noise-free :func:`update_sqrt_no_meascov` over a leading batch axis
+    (homogeneous shapes): each output stacked along axis 0."""
+    return torch.func.vmap(update_sqrt_no_meascov)(batched_transition_matrix,
+                                                   batched_cov_cholesky)

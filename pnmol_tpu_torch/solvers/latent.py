@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from pnmol_tpu_torch import config
 from pnmol_tpu_torch.ops import iwp, rv, stacked_ssm
 from pnmol_tpu_torch.solvers import pdefilter
 from pnmol_tpu_torch.utils import profiling
@@ -109,6 +110,18 @@ def latent_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     # [Calibrate + mean update] and [Un-precondition]
     M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
     return M_new, C_new, error, torch.abs(M_new[0, :d]), diffusion_sq
+
+
+def make_latent_step_fn(*, cache, num_derivatives, f=None, df=None, linear=True, fused=True,
+                        factorization=None, propagate_band=None, ek_order=1):
+    """Bind a cache to :func:`latent_attempt_step`: ``step(mean (n, 2d),
+    cov (2D, 2D), t_next, dt)`` with the contract of
+    :func:`pnmol_tpu_torch.solvers.white.make_white_step_fn`."""
+    return functools.partial(
+        latent_attempt_step, cache, num_derivatives=num_derivatives, f=f, df=df, linear=linear,
+        fused=fused, factorization=factorization, propagate_band=propagate_band,
+        ek_order=ek_order,
+    )
 
 
 def converge_latent_steady_state(cache, cov_sqrtm, dt, *, num_derivatives, fused=True,
@@ -218,7 +231,7 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         update_blocks = self._init_update_blocks(d, 2 * d)
         f = getattr(pde, "f", None)
         df = getattr(pde, "df", None)
-        nugget = 1e-6  # the latent solvers' f64 conditioning nugget
+        nugget = config.by_dtype(pde.y0.dtype, 1e-6, 1e-4)
         s = float(self.diffuse_prior_scale)
 
         # [Prior] Gram Cholesky and the closed-form y0 update of the state half
@@ -278,10 +291,9 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         ))
         opts = self._steady_options()
         if opts is None:
-            self._step_fn = functools.partial(
-                latent_attempt_step, self._cache,
-                num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-                factorization=self.factorization, fused=self.fused,
+            self._step_fn = make_latent_step_fn(
+                cache=self._cache, num_derivatives=self.num_derivatives, f=f, df=df,
+                linear=self.LINEAR, factorization=self.factorization, fused=self.fused,
                 propagate_band=self.propagate_band, ek_order=self.EK_ORDER,
             )
         else:

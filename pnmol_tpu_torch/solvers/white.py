@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pnmol_tpu_torch import config
 from pnmol_tpu_torch.odetools import step as step_module
 from pnmol_tpu_torch.ops import dare, iwp, qr_householder, rv, sqrt
 from pnmol_tpu_torch.solvers import pdefilter
@@ -187,6 +188,20 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     return M_new, C_new, error, torch.abs(M_new[0]), diffusion_sq
 
 
+def make_white_step_fn(*, cache, num_derivatives, f=None, df=None, linear=True, fused=True,
+                       factorization=None, meascov_dt_scaled=False, propagate_band=None,
+                       ek_order=1):
+    """Bind a cache to :func:`white_attempt_step`: ``step(mean (n, d), cov
+    (D, D), t_next, dt) -> (mean, cov, error (d,), reference (d,),
+    diffusion_sq ())``, the step of the solvers on a given cache (for
+    example one cast to another dtype). The options are the step's."""
+    return functools.partial(
+        white_attempt_step, cache, num_derivatives=num_derivatives, f=f, df=df, linear=linear,
+        fused=fused, factorization=factorization, meascov_dt_scaled=meascov_dt_scaled,
+        propagate_band=propagate_band, ek_order=ek_order,
+    )
+
+
 def structured_init_y0(gram, chol_gram, y0, diffuse_scale, nugget, n):
     """Closed-form sqrt update of the Kronecker prior on the y0 observation.
 
@@ -242,7 +257,9 @@ def resolve_householder_hooks(d: int, *, pair_columns: bool = False):
     package sizes them: blocks of 256 rows from 4096 points on (else 128),
     leaves of 64 rows from 8192 on (else 32). The panel kernel takes 128-row
     blocks in one launch; 256-row blocks take the leaf route, one launch per
-    leaf (:func:`pnmol_tpu_torch.ops.qr_householder.blocked_lq_l`)."""
+    leaf (:func:`pnmol_tpu_torch.ops.qr_householder.blocked_lq_l`). The
+    sizing is the same in f32, where one launch could take up to 240 rows
+    (:func:`pnmol_tpu_torch.ops.qr_householder.panel_takes_rows`)."""
     leaf = 64 if d >= 8192 else 32
     block = 256 if d >= 4096 else 128
     factorization = qr_householder.make_householder_lq_factorization(
@@ -704,7 +721,8 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         df = getattr(pde, "df", None)
 
         y0 = pde.y0
-        nugget = 1e-10  # conditioning nugget of the reference, for f64
+        # the reference's 1e-10 falls below f32's resolution and NaNs the path
+        nugget = config.by_dtype(y0.dtype, 1e-10, 1e-5)
         diffuse_scale = self.diffuse_prior_scale
 
         # prior Gram, its Cholesky factor, and the closed-form y0 update
@@ -752,10 +770,9 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         ))
         opts = self._steady_options()
         if opts is None:
-            self._step_fn = functools.partial(
-                white_attempt_step, self._cache,
-                num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
-                factorization=self.factorization, fused=self.fused,
+            self._step_fn = make_white_step_fn(
+                cache=self._cache, num_derivatives=self.num_derivatives, f=f, df=df,
+                linear=self.LINEAR, factorization=self.factorization, fused=self.fused,
                 propagate_band=self.propagate_band,
                 meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
             )

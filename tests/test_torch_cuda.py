@@ -719,3 +719,31 @@ def test_work_precision_lv_row_on_the_card_matches_the_cpu(cuda):
     assert got["num_steps"] == want["num_steps"] == 4
     for key, rtol in (("rmse_rel", 1e-6), ("chi2", 2e-4)):
         np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=0, err_msg=key)
+
+
+def test_f32_bench_configuration_on_the_card_matches_the_cpu(cuda):
+    """The bench configuration under the f32 policy (built, initialized and
+    stepped in f32; 64 points, 20 steps) through the panel kernel's f32
+    instantiation on the card against the plain path on the CPU: every state
+    tensor f32, the solution u 1e-4 apart (the two f32 assemblies of L part
+    by their rounding; the port and the JAX package on the CPU: 9e-6)."""
+    previous = pt.config.enable_x64(False)
+    try:
+        finals = {}
+        for device, factorization in ((cuda, "householder"), ("cpu", None)):
+            dx = 1.0 / 63
+            heat = pt.pde.examples.heat_1d_discretized(
+                dx=dx, tmax=0.02, kernel=pt.kernels.SquareExponential(input_scale=0.1 / dx),
+                device=device)
+            before = tq.panel_lq.launches
+            final, _ = pt.white.LinearWhiteNoiseEK1(
+                steprule=pt.odetools.step.Constant(1e-3), num_derivatives=2,
+                spatial_kernel=pt.kernels.Matern52() + pt.kernels.WhiteNoise(),
+                factorization=factorization).simulate_final_state(heat)
+            assert (tq.panel_lq.launches > before) == (device == cuda)
+            assert {final.y.mean.dtype, final.y.cov_sqrtm.dtype} == {torch.float32}
+            finals[device] = final.y.mean.cpu()
+    finally:
+        pt.config.enable_x64(previous)
+    u_card, u_cpu = finals[cuda][0], finals["cpu"][0]
+    assert ((u_card - u_cpu).abs().max() / u_cpu.abs().max()).item() < 1e-4

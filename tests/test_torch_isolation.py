@@ -110,6 +110,48 @@ def test_the_sharded_tier_picks_no_device(module):
     assert "cuda.is_available" not in path.read_text()
 
 
+# the JAX modules whose names live elsewhere in the port, each with the
+# ROADMAP line that says why: ops/trisolve.py stays behind ("Not to port":
+# cuSOLVER needs no blocked triangular solves); ops/pallas_gram.py is
+# ops/gram.py, its jnp version the kernel's plain version
+MOVED = {"ops.trisolve": None,
+         "ops.pallas_gram": ("ops.gram", {"gram_fast_jnp": "gram_radial_reference"})}
+
+
+def _jax_modules():
+    root = REPO / "pnmol_tpu"
+    return [str(p.relative_to(root))[:-3].replace("/", ".").removesuffix("__init__")
+            .removesuffix(".") for p in sorted(root.rglob("*.py"))]
+
+
+def _public_names(module):
+    path = REPO / "pnmol_tpu" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = (REPO / "pnmol_tpu" / module.replace(".", "/") / "__init__.py")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [node.name for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_")]
+
+
+@pytest.mark.parametrize("module", _jax_modules(), ids=lambda m: m or "pnmol_tpu")
+def test_the_port_has_every_public_name_of_the_jax_package(module):
+    """Every public function and class of each ``pnmol_tpu`` module has its
+    counterpart, by name, in the port's module of the same name (read from
+    the JAX source; JAX is not imported), but for the modules of ``MOVED``."""
+    import importlib.util
+
+    target, renamed = module, {}
+    if module in MOVED:
+        if MOVED[module] is None:  # left behind: no half-ported module either
+            assert importlib.util.find_spec(f"pnmol_tpu_torch.{module}") is None
+            return
+        target, renamed = MOVED[module]
+    port = importlib.import_module("pnmol_tpu_torch" + (f".{target}" if target else ""))
+    missing = [name for name in _public_names(module)
+               if not hasattr(port, renamed.get(name, name))]
+    assert not missing, f"pnmol_tpu_torch.{target} lacks {missing}"
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run(
