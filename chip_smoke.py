@@ -176,7 +176,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
     ``solve_resilient`` with a NaN injected at step 10 (one restart from the
     step-5 checkpoint at dt / 2: 40 attempts, 693 ``panel_lq``), a
     checkpoint round trip of the card's state (bitwise, device kept), the
-    ``init_profile`` of ``initialize`` under ``PNMOL_INIT_PROFILE=1`` and
+    ``pnmol.init.*`` spans of a profiled ``initialize`` and
     ``time_blocked`` of one step (115 ``panel_lq``);
 29. (E2, after E) the steady sharded tier on two gloo ranks at phase E's
     point: the seeded sharded steady state (its cov_inf Gram held to E's at
@@ -1809,8 +1809,7 @@ class StageTimer:
 class SplitTimer:
     """Seconds spent in some functions of a module while the ``with`` block
     runs: each is wrapped, its calls synchronized on both ends and summed
-    (the ``PhaseTimer`` of ``utils.profiling`` for functions that a path
-    calls many times)."""
+    (synchronized seconds of functions that a path calls many times)."""
 
     def __init__(self, module, names):
         self.module, self.names = module, names
@@ -3014,9 +3013,9 @@ def phase_utilities(pt, dev, launches, card_line, heat):
     """O. The utilities on phase 5's panel-kernel path: ``solve_resilient``
     with one NaN injected at step 10 (one restart from the step-5
     checkpoint at dt / 2, then a finite finish at tmax); a checkpoint round
-    trip of the card's state (device kept, bitwise equal); the phase
-    seconds of ``initialize`` under ``PNMOL_INIT_PROFILE=1``; and
-    ``time_blocked`` of one step."""
+    trip of the card's state (device kept, bitwise equal); the
+    ``pnmol.init.*`` spans of a profiled ``initialize``; and ``time_blocked``
+    of one step."""
     import tempfile
 
     from pnmol_tpu_torch.utils import checkpoint, profiling, resilience
@@ -3064,18 +3063,31 @@ def phase_utilities(pt, dev, launches, card_line, heat):
               f"bitwise equal {same}, extra dt {float(extra['dt'])}", flush=True)
         check(same, "O: the checkpoint round trip changed the state or its device")
 
+    from torch.profiler import ProfilerActivity, profile
+
     solver = heat_solver(pt, "householder", steprule=pt.odetools.step.Constant(DT))
     launches.reset()
-    with environ(PNMOL_INIT_PROFILE="1"):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state = solver.initialize(heat)
+        torch.cuda.synchronize()
+    spans = {}  # the host's side of each span: milliseconds of each occurrence
+    for event in prof.profiler.kineto_results.events():
+        if event.name().startswith("pnmol.") and not str(event.device_type()).endswith("CUDA"):
+            spans.setdefault(event.name(), []).append(event.duration_ns() * 1e-6)
     out, step_s = profiling.time_blocked(solver._step_fn, state.y.mean, state.y.cov_sqrtm, DT,
                                          DT, repeats=5)
-    launches.read("O init_profile and time_blocked (1 + 6 steps)", {"panel_lq": 13 + 17 * 6})
-    print(f"O init_profile of phase 5's initialize: {solver.init_profile}; time_blocked of one "
-          f"step: {step_s * 1e3:.3f} ms (best of 5) [{card_line}]", flush=True)
-    check(set(solver.init_profile) == {"prior_gram_cholesky_y0", "measure_assembly",
-                                       "init_update_qr", "aux_Ql_Ebc"},
-          "O: init_profile's phases")
+    launches.read("O the init spans and time_blocked (1 + 6 steps)", {"panel_lq": 13 + 17 * 6})
+    phases = {name.removeprefix("pnmol.init."): round(sum(ms), 3)
+              for name, ms in spans.items() if name.startswith("pnmol.init.")}
+    print(f"O pnmol.init.* spans of phase 5's profiled initialize (host ms): {phases}, "
+          f"pnmol.init {sum(spans.get('pnmol.init', [])):.3f} ms, "
+          f"{len(spans.get('pnmol.kernel.panel_lq', []))} pnmol.kernel.panel_lq; time_blocked "
+          f"of one step: {step_s * 1e3:.3f} ms (best of 5) [{card_line}]", flush=True)
+    check(set(phases) == {"prior_gram_cholesky_y0", "measure_assembly", "init_update_qr",
+                          "aux_Ql_Ebc"}, "O: the init spans' phases")
+    check(len(spans.get("pnmol.init", [])) == 1
+          and len(spans.get("pnmol.kernel.panel_lq", [])) == 13,
+          "O: one pnmol.init span holding the 13 launches' kernel spans")
     check(bool(torch.isfinite(out[0]).all()), "O: NaN or inf in the timed step")
 
 

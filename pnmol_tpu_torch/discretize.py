@@ -19,6 +19,7 @@ import torch
 from torch.func import grad, jacfwd, vmap
 
 from pnmol_tpu_torch import diffops, kernels
+from pnmol_tpu_torch.utils.profiling import annotate
 
 
 def _matern52_point_patches(kernel):
@@ -92,7 +93,9 @@ def fd_probabilistic(diffop, mesh_spatial, kernel=None, stencil_size_interior=3,
     """Discretize ``diffop`` with probabilistic finite differences.
 
     Returns ``L`` (N, N), one stencil row per mesh point, and the diagonal
-    error factor ``E_sqrtm`` (N, N), on the mesh's device.
+    error factor ``E_sqrtm`` (N, N), on the mesh's device. Its phases are
+    spans: ``pnmol.discretize.neighbours`` (the stencils' points),
+    ``.stencils`` (the batched coefficients) and ``.assemble``.
     """
     if kernel is None:
         kernel = kernels.SquareExponential(input_scale=1.0, output_scale=1.0)
@@ -110,32 +113,35 @@ def fd_probabilistic(diffop, mesh_spatial, kernel=None, stencil_size_interior=3,
         else getattr(kernel, "stationary", False)
     )
 
-    points_interior, _, indices_interior = mesh_spatial.interior
-    points_boundary, _, indices_boundary = mesh_spatial.boundary
-    neighbors_interior, neighbor_idx_interior = mesh_spatial.neighbours(
-        point=points_interior, num=stencil_size_interior
-    )
-    neighbors_boundary, neighbor_idx_boundary = mesh_spatial.neighbours(
-        point=points_boundary, num=stencil_size_boundary
-    )
+    with annotate("pnmol.discretize.neighbours"):
+        points_interior, _, indices_interior = mesh_spatial.interior
+        points_boundary, _, indices_boundary = mesh_spatial.boundary
+        neighbors_interior, neighbor_idx_interior = mesh_spatial.neighbours(
+            point=points_interior, num=stencil_size_interior
+        )
+        neighbors_boundary, neighbor_idx_boundary = mesh_spatial.neighbours(
+            point=points_boundary, num=stencil_size_boundary
+        )
 
-    w_int, u_int = _stencil_coefficients(
-        coeff_batch, mesh_spatial, points_interior, indices_interior,
-        neighbors_interior, neighbor_idx_interior, dedupe,
-    )
-    w_bnd, u_bnd = _stencil_coefficients(
-        coeff_batch, mesh_spatial, points_boundary, indices_boundary,
-        neighbors_boundary, neighbor_idx_boundary, dedupe,
-    )
+    with annotate("pnmol.discretize.stencils"):
+        w_int, u_int = _stencil_coefficients(
+            coeff_batch, mesh_spatial, points_interior, indices_interior,
+            neighbors_interior, neighbor_idx_interior, dedupe,
+        )
+        w_bnd, u_bnd = _stencil_coefficients(
+            coeff_batch, mesh_spatial, points_boundary, indices_boundary,
+            neighbors_boundary, neighbor_idx_boundary, dedupe,
+        )
 
-    N = len(mesh_spatial)
-    points = mesh_spatial.points
-    L = torch.zeros((N, N), dtype=points.dtype, device=points.device)
-    E_sqrtm = torch.zeros((N, N), dtype=points.dtype, device=points.device)
-    L[indices_boundary[:, None], neighbor_idx_boundary] = w_bnd
-    L[indices_interior[:, None], neighbor_idx_interior] = w_int
-    E_sqrtm[indices_boundary, indices_boundary] = u_bnd
-    E_sqrtm[indices_interior, indices_interior] = u_int
+    with annotate("pnmol.discretize.assemble"):
+        N = len(mesh_spatial)
+        points = mesh_spatial.points
+        L = torch.zeros((N, N), dtype=points.dtype, device=points.device)
+        E_sqrtm = torch.zeros((N, N), dtype=points.dtype, device=points.device)
+        L[indices_boundary[:, None], neighbor_idx_boundary] = w_bnd
+        L[indices_interior[:, None], neighbor_idx_interior] = w_int
+        E_sqrtm[indices_boundary, indices_boundary] = u_bnd
+        E_sqrtm[indices_interior, indices_interior] = u_int
     return L, E_sqrtm
 
 

@@ -8,6 +8,7 @@ import torch
 from torch.func import jacfwd
 
 from pnmol_tpu_torch import discretize
+from pnmol_tpu_torch.utils.profiling import annotate
 
 
 def _boundary_operator(pde, mesh_spatial, kernel, stencil_size_boundary,
@@ -34,76 +35,79 @@ class DiscretizationMixIn:
     """Probabilistic spatial discretization of scalar PDEs:
     ``scheme="fd"`` (localized probabilistic finite differences) or
     ``scheme="collocation"`` (dense global collocation, with the JAX
-    package's nuggets)."""
+    package's nuggets), in one ``pnmol.discretize`` span."""
 
     def discretize(self, *, mesh_spatial, kernel, stencil_size_interior,
                    stencil_size_boundary, nugget_gram_matrix=0.0, scheme="fd"):
-        if scheme == "fd":
-            L, E_sqrtm = discretize.fd_probabilistic(
-                self.diffop,
+        with annotate("pnmol.discretize"):
+            if scheme == "fd":
+                L, E_sqrtm = discretize.fd_probabilistic(
+                    self.diffop,
+                    mesh_spatial=mesh_spatial,
+                    kernel=kernel,
+                    stencil_size_interior=stencil_size_interior,
+                    stencil_size_boundary=stencil_size_boundary,
+                    nugget_gram_matrix=nugget_gram_matrix,
+                )
+            elif scheme == "collocation":
+                L, E_sqrtm = discretize.collocation_global(
+                    self.diffop,
+                    mesh_spatial=mesh_spatial,
+                    kernel=kernel,
+                    nugget_gram_matrix=max(nugget_gram_matrix, 1e-12),
+                    nugget_cholesky_E=1e-12,
+                    symmetrize_cholesky_E=True,
+                )
+            else:
+                raise ValueError(f"Unknown discretization scheme: {scheme!r}")
+            self.L = self.diffop_scale * L
+            self.E_sqrtm = self.diffop_scale * E_sqrtm
+            self.mesh_spatial = mesh_spatial
+
+            if isinstance(self, _BoundaryConditionMixInInterface):
+                self.B, self.R_sqrtm = _boundary_operator(
+                    self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
+                )
+
+            if isinstance(self, IVPMixIn):
+                # scalar initial value: slice the zeroth dimension
+                self.y0 = self.y0_fun(mesh_spatial.points)[:, 0]
+
+
+class SystemDiscretizationMixIn:
+    """Discretization for systems of PDEs: per-species FD, block-diagonal
+    ``L``, ``E_sqrtm``, ``B`` and ``R_sqrtm``, in one ``pnmol.discretize``
+    span."""
+
+    def discretize_system(self, *, mesh_spatial, kernel, stencil_size_interior,
+                          stencil_size_boundary, nugget_gram_matrix=0.0):
+        with annotate("pnmol.discretize"):
+            fd = functools.partial(
+                discretize.fd_probabilistic,
                 mesh_spatial=mesh_spatial,
                 kernel=kernel,
                 stencil_size_interior=stencil_size_interior,
                 stencil_size_boundary=stencil_size_boundary,
                 nugget_gram_matrix=nugget_gram_matrix,
             )
-        elif scheme == "collocation":
-            L, E_sqrtm = discretize.collocation_global(
-                self.diffop,
-                mesh_spatial=mesh_spatial,
-                kernel=kernel,
-                nugget_gram_matrix=max(nugget_gram_matrix, 1e-12),
-                nugget_cholesky_E=1e-12,
-                symmetrize_cholesky_E=True,
-            )
-        else:
-            raise ValueError(f"Unknown discretization scheme: {scheme!r}")
-        self.L = self.diffop_scale * L
-        self.E_sqrtm = self.diffop_scale * E_sqrtm
-        self.mesh_spatial = mesh_spatial
+            blocks = [
+                (scale * L, scale * E)
+                for scale, (L, E) in zip(self.diffop_scale, map(fd, self.diffop))
+            ]
+            self.L = torch.block_diag(*[L for L, _ in blocks])
+            self.E_sqrtm = torch.block_diag(*[E for _, E in blocks])
+            self.mesh_spatial = mesh_spatial
 
-        if isinstance(self, _BoundaryConditionMixInInterface):
-            self.B, self.R_sqrtm = _boundary_operator(
-                self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
-            )
+            if isinstance(self, _BoundaryConditionMixInInterface):
+                B, R_sqrtm = _boundary_operator(
+                    self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
+                )
+                n = len(self.diffop)
+                self.B = torch.block_diag(*([B] * n))
+                self.R_sqrtm = torch.block_diag(*([R_sqrtm] * n))
 
-        if isinstance(self, IVPMixIn):
-            # scalar initial value: slice the zeroth dimension
-            self.y0 = self.y0_fun(mesh_spatial.points)[:, 0]
-
-
-class SystemDiscretizationMixIn:
-    """Discretization for systems of PDEs: per-species FD, block-diagonal
-    ``L``, ``E_sqrtm``, ``B`` and ``R_sqrtm``."""
-
-    def discretize_system(self, *, mesh_spatial, kernel, stencil_size_interior,
-                          stencil_size_boundary, nugget_gram_matrix=0.0):
-        fd = functools.partial(
-            discretize.fd_probabilistic,
-            mesh_spatial=mesh_spatial,
-            kernel=kernel,
-            stencil_size_interior=stencil_size_interior,
-            stencil_size_boundary=stencil_size_boundary,
-            nugget_gram_matrix=nugget_gram_matrix,
-        )
-        blocks = [
-            (scale * L, scale * E)
-            for scale, (L, E) in zip(self.diffop_scale, map(fd, self.diffop))
-        ]
-        self.L = torch.block_diag(*[L for L, _ in blocks])
-        self.E_sqrtm = torch.block_diag(*[E for _, E in blocks])
-        self.mesh_spatial = mesh_spatial
-
-        if isinstance(self, _BoundaryConditionMixInInterface):
-            B, R_sqrtm = _boundary_operator(
-                self, mesh_spatial, kernel, stencil_size_boundary, nugget_gram_matrix
-            )
-            n = len(self.diffop)
-            self.B = torch.block_diag(*([B] * n))
-            self.R_sqrtm = torch.block_diag(*([R_sqrtm] * n))
-
-        if isinstance(self, IVPMixIn):
-            self.y0 = self.y0_fun(mesh_spatial.points).squeeze()
+            if isinstance(self, IVPMixIn):
+                self.y0 = self.y0_fun(mesh_spatial.points).squeeze()
 
 
 class IVPMixIn:

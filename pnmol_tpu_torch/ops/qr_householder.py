@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from pnmol_tpu_torch.ops import cuda_build
+from pnmol_tpu_torch.utils.profiling import annotate
 
 # ctypes types of the panel kernel's own arguments: slab, lv, tT, scratch,
 # barrier count (device pointers), rows, cols, off, ctas, width, registers
@@ -185,13 +186,15 @@ def panel_lq(slab, off):
     ``panel_lq.launches``; anything the kernel does not take raises, and so
     does a slab that autograd records through.
     """
-    _no_backward("panel_lq", slab)
-    if slab.device.type == "cpu":
-        return panel_lq_reference(slab, off)
-    _check_panel(slab, off)
-    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
-    rows, cols = slab.shape
-    return _launch_panel_lq(slab, off, panel_lq_launch(rows, cols, slab.element_size(), num_sms))
+    with annotate("pnmol.kernel.panel_lq"):
+        _no_backward("panel_lq", slab)
+        if slab.device.type == "cpu":
+            return panel_lq_reference(slab, off)
+        _check_panel(slab, off)
+        num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+        rows, cols = slab.shape
+        return _launch_panel_lq(slab, off,
+                                panel_lq_launch(rows, cols, slab.element_size(), num_sms))
 
 
 def _check_panel(slab, off):
@@ -258,15 +261,17 @@ def leaf_lq(slab, off):
     the plain version; anything the kernel does not take raises, and so does
     a slab that autograd records through.
     """
-    _no_backward("leaf_lq", slab)
-    if slab.device.type == "cpu":
-        return panel_lq_reference(slab, off)
-    _check_panel(slab, off)
-    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
-    rows, cols = slab.shape
-    lv, tT = _launch_wide(slab, off, panel_lq_launch(rows, cols, slab.element_size(), num_sms))
-    leaf_lq.launches += 1
-    return lv, tT
+    with annotate("pnmol.kernel.leaf_lq"):
+        _no_backward("leaf_lq", slab)
+        if slab.device.type == "cpu":
+            return panel_lq_reference(slab, off)
+        _check_panel(slab, off)
+        num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+        rows, cols = slab.shape
+        lv, tT = _launch_wide(slab, off,
+                              panel_lq_launch(rows, cols, slab.element_size(), num_sms))
+        leaf_lq.launches += 1
+        return lv, tT
 
 
 leaf_lq.launches = 0
@@ -352,32 +357,36 @@ def _leaf_route(blk, leaf):
 
 
 def _lq_in_place(work, *, leaf, block, band, precision="highest"):
-    """:func:`blocked_lq_l`'s sweep on ``work``, which it overwrites."""
+    """:func:`blocked_lq_l`'s sweep on ``work``, which it overwrites: one
+    ``pnmol.lq.sweep`` span, each block's trailing update a
+    ``pnmol.lq.trailing`` span inside it."""
     Nr, M = work.shape
     if M < Nr:
         raise ValueError(f"blocked_lq_l requires cols >= rows, got {tuple(work.shape)}")
     leaves = not panel_takes_rows(block, work.element_size())
     done = 0
-    with matmul_precision(precision, work):
-        while done < Nr:
-            b = min(block, Nr - done)
-            # the block's window: every column past it is an exact zero of
-            # the block's rows (band=), so the reflectors never touch it
-            win = M - done
-            if band is not None:
-                win = min(win, band[0] + (band[1] - 1) * done + band[1] * b)
-            blk = work[done:done + b, done:done + win].contiguous()
-            if leaves:
-                lv, V, tT = _leaf_route(blk, leaf)
-            else:
-                lv, tT = panel_lq(blk, 0)
-                V = _reflectors(lv)
-            work[done:done + b, done:done + b] = lv[:, :b]
-            rest = work[done + b:, done:done + win]
-            if rest.shape[0]:  # in place; its first b columns become L's
-                rest.addmm_((rest @ V.T) @ tT.T, V, alpha=-1)
-            done += b
-    return torch.tril(work[:, :Nr])
+    with annotate("pnmol.lq.sweep"):
+        with matmul_precision(precision, work):
+            while done < Nr:
+                b = min(block, Nr - done)
+                # the block's window: every column past it is an exact zero of
+                # the block's rows (band=), so the reflectors never touch it
+                win = M - done
+                if band is not None:
+                    win = min(win, band[0] + (band[1] - 1) * done + band[1] * b)
+                blk = work[done:done + b, done:done + win].contiguous()
+                if leaves:
+                    lv, V, tT = _leaf_route(blk, leaf)
+                else:
+                    lv, tT = panel_lq(blk, 0)
+                    V = _reflectors(lv)
+                work[done:done + b, done:done + b] = lv[:, :b]
+                rest = work[done + b:, done:done + win]
+                if rest.shape[0]:  # in place; its first b columns become L's
+                    with annotate("pnmol.lq.trailing"):
+                        rest.addmm_((rest @ V.T) @ tT.T, V, alpha=-1)
+                done += b
+        return torch.tril(work[:, :Nr])
 
 
 def blocked_lq_l(W, *, leaf: int = 32, block: int = 128, band=None,
@@ -600,13 +609,14 @@ def leaf_qr(slab):
     takes 1 <= leaf <= 128 columns and rows >= leaf, and anything else
     raises, as does a slab that autograd records through.
     """
-    _no_backward("leaf_qr", slab)
-    if slab.device.type == "cpu":
-        return leaf_qr_reference(slab)
-    _check_leaf(slab)
-    num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
-    rows, cols = slab.shape
-    return _launch_leaf_qr(slab, leaf_qr_launch(rows, cols, slab.element_size(), num_sms))
+    with annotate("pnmol.kernel.leaf_qr"):
+        _no_backward("leaf_qr", slab)
+        if slab.device.type == "cpu":
+            return leaf_qr_reference(slab)
+        _check_leaf(slab)
+        num_sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+        rows, cols = slab.shape
+        return _launch_leaf_qr(slab, leaf_qr_launch(rows, cols, slab.element_size(), num_sms))
 
 
 def _check_leaf(slab):

@@ -17,7 +17,6 @@ seed (its DARE has no finite solution).
 """
 
 import functools
-import os
 from typing import NamedTuple
 
 import torch
@@ -25,7 +24,7 @@ import torch
 from pnmol_tpu_torch import config
 from pnmol_tpu_torch.ops import iwp, rv, stacked_ssm
 from pnmol_tpu_torch.solvers import pdefilter
-from pnmol_tpu_torch.utils import profiling
+from pnmol_tpu_torch.utils.profiling import annotate
 from pnmol_tpu_torch.solvers.white import (
     FusedFactorizationFilter,
     _calibrate_and_update,
@@ -222,10 +221,8 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
     def E1(self):
         return self.lf_iwp.projection_matrix(1)
 
-    def initialize(self, pde):
+    def _initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
-        # PNMOL_INIT_PROFILE=1 -> self.init_profile (see the white solvers)
-        mark = profiling.PhaseTimer(os.environ.get("PNMOL_INIT_PROFILE") == "1")
         # hooks sized for the stacked dimension: the latent pre-array is the
         # white one at 2d points
         update_blocks = self._init_update_blocks(d, 2 * d)
@@ -235,60 +232,63 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
         s = float(self.diffuse_prior_scale)
 
         # [Prior] Gram Cholesky and the closed-form y0 update of the state half
-        X = pde.mesh_spatial.points
-        gram = self.spatial_kernel(X, X.T)
-        chol_gram = torch.linalg.cholesky(gram)
-        u0, y0_blocks = structured_init_y0(gram, chol_gram, pde.y0, s, nugget, n)
-        C00 = mark("prior_gram_cholesky_y0", y0_blocks[0])
+        with annotate("pnmol.init.prior_gram_cholesky_y0"):
+            X = pde.mesh_spatial.points
+            gram = self.spatial_kernel(X, X.T)
+            chol_gram = torch.linalg.cholesky(gram)
+            u0, y0_blocks = structured_init_y0(gram, chol_gram, pde.y0, s, nugget, n)
+            C00 = y0_blocks[0]
 
         # [Measurement] stacked derivative-major factor blocks over the
         # (state | latent) points: derivative 0 = blockdiag(C00, s E), the
         # others blockdiag(s chol_gram, s E). The residual at t0 is closed
         # form: z_ode = -L u0 - f(u0), z_bc = B u0. (The EK0 solver
         # initializes with the Jacobian too, as the JAX package does.)
-        L, B, E_sqrtm = pde.L, pde.B, pde.E_sqrtm
-        B0 = torch.block_diag(C00, s * E_sqrtm)
-        B1 = torch.block_diag(s * chol_gram, s * E_sqrtm)
-        if self.LINEAR:
-            G_lin, z_ode = L, -L @ u0
-        else:
-            G_lin, z_ode = df(pde.t0, u0) + L, -L @ u0 - f(pde.t0, u0)
-        z_pde = torch.cat((z_ode, B @ u0))
+        with annotate("pnmol.init.measure_assembly"):
+            L, B, E_sqrtm = pde.L, pde.B, pde.E_sqrtm
+            B0 = torch.block_diag(C00, s * E_sqrtm)
+            B1 = torch.block_diag(s * chol_gram, s * E_sqrtm)
+            if self.LINEAR:
+                G_lin, z_ode = L, -L @ u0
+            else:
+                G_lin, z_ode = df(pde.t0, u0) + L, -L @ u0 - f(pde.t0, u0)
+            z_pde = torch.cat((z_ode, B @ u0))
 
-        # H on the derivative-{0,1} sub-stack, columnwise on blockdiag(B0, B1):
-        # ode rows = X1_state - G X0_state - X0_eps, bc rows = B X0_state
-        b_rows = B.shape[0]
-        HCsub = torch.cat(
-            (
-                torch.cat((-G_lin @ C00, -s * E_sqrtm, s * chol_gram,
-                           u0.new_zeros((d, d))), dim=1),
-                torch.cat((B @ C00, u0.new_zeros((b_rows, 3 * d))), dim=1),
-            ),
-            dim=0,
-        )
-        nugget_pde = mark("measure_assembly", nugget * torch.eye(d + b_rows, dtype=u0.dtype,
-                                                                 device=u0.device))
-        u0_stack = torch.cat((u0, torch.zeros_like(u0)))
-        m0, C0 = mark("init_update_qr", reduced_init_pde_update(
-            [B0] + [B1] * (n - 1), HCsub, nugget_pde, z_pde, u0_stack, update_blocks
-        ))
-        C0 = self._initial_factor(C0, mark)
+            # H on the derivative-{0,1} sub-stack, columnwise on blockdiag(B0, B1):
+            # ode rows = X1_state - G X0_state - X0_eps, bc rows = B X0_state
+            b_rows = B.shape[0]
+            HCsub = torch.cat(
+                (
+                    torch.cat((-G_lin @ C00, -s * E_sqrtm, s * chol_gram,
+                               u0.new_zeros((d, d))), dim=1),
+                    torch.cat((B @ C00, u0.new_zeros((b_rows, 3 * d))), dim=1),
+                ),
+                dim=0,
+            )
+            nugget_pde = nugget * torch.eye(d + b_rows, dtype=u0.dtype, device=u0.device)
+        with annotate("pnmol.init.init_update_qr"):
+            u0_stack = torch.cat((u0, torch.zeros_like(u0)))
+            m0, C0 = reduced_init_pde_update(
+                [B0] + [B1] * (n - 1), HCsub, nugget_pde, z_pde, u0_stack, update_blocks
+            )
+        C0 = self._initial_factor(C0)
 
         # [Step cache] the stacked prior as one IWP over 2d points
-        self.state_iwp = iwp.IntegratedWienerTransition(
-            num_derivatives=self.num_derivatives, wiener_process_dimension=d,
-            wp_diffusion_sqrtm=chol_gram,
-        )
-        self.lf_iwp = iwp.IntegratedWienerTransition(
-            num_derivatives=self.num_derivatives, wiener_process_dimension=d,
-            wp_diffusion_sqrtm=E_sqrtm,
-        )
-        self.ssm = stacked_ssm.StackedSSM(processes=[self.state_iwp, self.lf_iwp])
-        merged = self.ssm.as_single_iwp()
-        self._cache = mark("aux_Ql", LatentSolverCache(
-            A1d=merged.preconditioned_discretize_1d[0], Ql=merged.process_noise_factor,
-            L=L, B=B,
-        ))
+        with annotate("pnmol.init.aux_Ql"):
+            self.state_iwp = iwp.IntegratedWienerTransition(
+                num_derivatives=self.num_derivatives, wiener_process_dimension=d,
+                wp_diffusion_sqrtm=chol_gram,
+            )
+            self.lf_iwp = iwp.IntegratedWienerTransition(
+                num_derivatives=self.num_derivatives, wiener_process_dimension=d,
+                wp_diffusion_sqrtm=E_sqrtm,
+            )
+            self.ssm = stacked_ssm.StackedSSM(processes=[self.state_iwp, self.lf_iwp])
+            merged = self.ssm.as_single_iwp()
+            self._cache = LatentSolverCache(
+                A1d=merged.preconditioned_discretize_1d[0], Ql=merged.process_noise_factor,
+                L=L, B=B,
+            )
         opts = self._steady_options()
         if opts is None:
             self._step_fn = make_latent_step_fn(
@@ -301,19 +301,19 @@ class _LatentForceEK1Base(FusedFactorizationFilter):
             # undetectable, so the covariance grows like a random walk while
             # the gain converges; the recursion's Gram-diagonal stationarity
             # stands in for the gain's
-            self.steady_cache = run_steady_convergence(
-                converge_latent_steady_state, self._cache, C0, float(self.steprule.dt), opts,
-                1e-8 if m0.dtype == torch.float64 else 1e-5,
-                num_derivatives=self.num_derivatives, fused=self.fused,
-                factorization=self.factorization, propagate_band=self.propagate_band,
-            )
-            C0 = mark("steady_riccati", self.steady_cache).cov_inf
+            with annotate("pnmol.init.steady_riccati"):
+                self.steady_cache = run_steady_convergence(
+                    converge_latent_steady_state, self._cache, C0, float(self.steprule.dt),
+                    opts, 1e-8 if m0.dtype == torch.float64 else 1e-5,
+                    num_derivatives=self.num_derivatives, fused=self.fused,
+                    factorization=self.factorization, propagate_band=self.propagate_band,
+                )
+                C0 = self.steady_cache.cov_inf
             self._step_fn = make_steady_state_latent_step(
                 cache=self._cache, steady=self.steady_cache,
                 num_derivatives=self.num_derivatives,
             )
 
-        self.init_profile = mark.profile
         # point-major glue: [state (n, d) | latent (n, d)] along the last axis
         m0_state, m0_latent = torch.chunk(m0, 2)
         mean0 = torch.cat(

@@ -21,6 +21,7 @@ import torch
 from pnmol_tpu_torch import kernels
 from pnmol_tpu_torch.odetools import step as step_module
 from pnmol_tpu_torch.ops import rv
+from pnmol_tpu_torch.utils.profiling import annotate
 
 
 class PDEFilterState(NamedTuple):
@@ -81,15 +82,19 @@ def adaptive_attempt(step_fn, steprule, rate, t, mean, cov, dt, tmax):
     host once (``accepted``). Returns ``(t_new, mean_new, cov_new, dt_new,
     accepted, error, ref, diff_sq, scaled_error)``: the state outputs are
     those of the attempt if it is accepted and the inputs otherwise,
-    ``error``/``ref``/``diff_sq`` are the attempt's own.
+    ``error``/``ref``/``diff_sq`` are the attempt's own. The attempt is one
+    ``pnmol.step`` span, the decision and its host reads a
+    ``pnmol.step.control`` span inside it.
     """
-    new_mean, new_cov, error, ref, diff_sq = step_fn(mean, cov, t + dt, dt)
-    scaled = steprule.scale_error_estimate(dt * error, ref)
-    accepted = bool(steprule.is_accepted(scaled))
-    suggested = float(steprule.suggest(dt, scaled, local_convergence_rate=rate))
-    if accepted:
-        t, mean, cov = t + dt, new_mean, new_cov
-    dt_new = min(suggested, tmax - t)
+    with annotate("pnmol.step"):
+        new_mean, new_cov, error, ref, diff_sq = step_fn(mean, cov, t + dt, dt)
+        with annotate("pnmol.step.control"):
+            scaled = steprule.scale_error_estimate(dt * error, ref)
+            accepted = bool(steprule.is_accepted(scaled))
+            suggested = float(steprule.suggest(dt, scaled, local_convergence_rate=rate))
+            if accepted:
+                t, mean, cov = t + dt, new_mean, new_cov
+            dt_new = min(suggested, tmax - t)
     return t, mean, cov, dt_new, accepted, error, ref, diff_sq, scaled
 
 
@@ -171,12 +176,13 @@ class PDEFilter(ABC):
         return True
 
     def attempt_step(self, state, dt, pde, t_next=None):
-        """One attempt ``state -> (state at t_next, info)``; ``t_next``
-        defaults to ``state.t + dt``."""
+        """One attempt ``state -> (state at t_next, info)``, one
+        ``pnmol.step`` span; ``t_next`` defaults to ``state.t + dt``."""
         t_next = state.t + dt if t_next is None else t_next
-        mean, cov, error, reference, diff_sq = self._step_function(pde)(
-            state.y.mean, state.y.cov_sqrtm, t_next, dt
-        )
+        with annotate("pnmol.step"):
+            mean, cov, error, reference, diff_sq = self._step_function(pde)(
+                state.y.mean, state.y.cov_sqrtm, t_next, dt
+            )
         new_state = PDEFilterState(
             t=t_next,
             y=rv.MultivariateNormal(mean=mean, cov_sqrtm=cov),

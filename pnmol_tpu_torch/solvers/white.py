@@ -21,7 +21,6 @@ materialized.
 """
 
 import functools
-import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,7 +29,8 @@ from pnmol_tpu_torch import config
 from pnmol_tpu_torch.odetools import step as step_module
 from pnmol_tpu_torch.ops import dare, iwp, qr_householder, rv, sqrt
 from pnmol_tpu_torch.solvers import pdefilter
-from pnmol_tpu_torch.utils import debug, profiling
+from pnmol_tpu_torch.utils import debug
+from pnmol_tpu_torch.utils.profiling import annotate
 
 
 class WhiteSolverCache(NamedTuple):
@@ -150,41 +150,48 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     (the legacy gain contract); ``fused`` and ``propagate_band`` choose the
     pipeline (see :func:`_predict_update`). ``meascov_dt_scaled`` uses the
     measurement noise factor ``sqrt(dt) E`` (the discretization error as a
-    white noise in time).
+    white noise in time). Its four phases are spans inside the attempt's
+    ``pnmol.step``: ``pnmol.step.predict``, ``.error``, ``.factorize`` and
+    ``.update``.
     """
     n = num_derivatives + 1
     d = mean.shape[1]
     m_dim = d + cache.B.shape[0]
-    p, p_inv = iwp.nordsieck_scales_1d(
-        num_derivatives, dt, dtype=mean.dtype, device=mean.device
-    )
-    E_bc = _meascov_factor(cache, dt, meascov_dt_scaled)
+    with annotate("pnmol.step.predict"):
+        p, p_inv = iwp.nordsieck_scales_1d(
+            num_derivatives, dt, dtype=mean.dtype, device=mean.device
+        )
+        E_bc = _meascov_factor(cache, dt, meascov_dt_scaled)
 
-    # [Precondition] and [Predict mean]
-    M = mean * p_inv[:, None]
-    Cl = iwp.scale_stack(p_inv, cov_sqrtm)
-    Mp = cache.A1d @ M
+        # [Precondition] and [Predict mean]
+        M = mean * p_inv[:, None]
+        Cl = iwp.scale_stack(p_inv, cov_sqrtm)
+        Mp = cache.A1d @ M
 
-    # [Linearize] at the predicted point; [Residual] z = H mp + [shift; 0]
-    m_at = p[0] * Mp[0]
-    G, shift = _linearize(f, df, cache.L, t_next, m_at, linear, ek_order)
-    apply_H = _measurement_operator(cache, G, p, n)
-    z = torch.cat((p[1] * Mp[1] - G @ m_at + shift, cache.B @ m_at))
+        # [Linearize] at the predicted point; [Residual] z = H mp + [shift; 0]
+        m_at = p[0] * Mp[0]
+        G, shift = _linearize(f, df, cache.L, t_next, m_at, linear, ek_order)
+        apply_H = _measurement_operator(cache, G, p, n)
+        z = torch.cat((p[1] * Mp[1] - G @ m_at + shift, cache.B @ m_at))
 
     # [Error estimate] from S = H Q H^T + E E^T on the small (m, m) system
-    HQl = apply_H(cache.Ql)
-    S = HQl @ HQl.T + E_bc @ E_bc.T
-    whitened = torch.cholesky_solve(z[:, None], torch.linalg.cholesky(S))[:, 0]
-    sigma_squared = z @ whitened / m_dim
-    error = dt * (torch.sqrt(torch.diagonal(S)) * torch.sqrt(sigma_squared))[:d]
+    with annotate("pnmol.step.error"):
+        HQl = apply_H(cache.Ql)
+        S = HQl @ HQl.T + E_bc @ E_bc.T
+        whitened = torch.cholesky_solve(z[:, None], torch.linalg.cholesky(S))[:, 0]
+        sigma_squared = z @ whitened / m_dim
+        error = dt * (torch.sqrt(torch.diagonal(S)) * torch.sqrt(sigma_squared))[:d]
 
     # [Predict + update covariance]: the gain L21 Sl^{-1} is never formed
-    ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
-    Cl_new, L21, K, Sl = _predict_update(factorization, fused, propagate_band, apply_H, ACl,
-                                         HQl, cache.Ql, E_bc, n)
+    with annotate("pnmol.step.factorize"):
+        ACl = iwp.apply_stack_matrix(cache.A1d, Cl)
+        Cl_new, L21, K, Sl = _predict_update(factorization, fused, propagate_band, apply_H,
+                                             ACl, HQl, cache.Ql, E_bc, n)
 
     # [Calibrate + mean update] and [Un-precondition]
-    M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim)
+    with annotate("pnmol.step.update"):
+        M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n,
+                                                           m_dim)
     return M_new, C_new, error, torch.abs(M_new[0]), diffusion_sq
 
 
@@ -655,16 +662,16 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
             return sqrt.update_sqrt_from_products_blocks
         return self._init_update.blocks
 
-    def _initial_factor(self, C0, mark):
+    def _initial_factor(self, C0):
         """The initial factor; for the interleaved propagate of the two-QR
         pipeline a lower-triangular one with its Gram (its precondition):
         the hook's ``.tri``, else the transposed R of ``torch.linalg.qr(C0.T)``,
-        timed by the phase timer ``mark``."""
+        in a ``pnmol.init.interleave_retriangularize`` span."""
         if self.propagate_band != "interleaved" or self.fused:
             return C0
         tri = getattr(self.factorization, "tri", None)
-        return mark("interleave_retriangularize",
-                    tri(C0) if tri is not None else sqrt.triu_qr(C0.T).T)
+        with annotate("pnmol.init.interleave_retriangularize"):
+            return tri(C0) if tri is not None else sqrt.triu_qr(C0.T).T
 
     def _steady_options(self):
         """None when steady-state mode is off, else its options, after the
@@ -683,6 +690,13 @@ class FusedFactorizationFilter(pdefilter.PDEFilter):
             )
         self.steady_diagnostics = {}
         return self.steady_state if isinstance(self.steady_state, dict) else {}
+
+    def initialize(self, pde):
+        """The initial state, in one ``pnmol.init`` span; the solver's
+        ``_initialize`` marks its phases with spans inside it, named
+        ``pnmol.init.<phase>`` after the JAX package's phases."""
+        with annotate("pnmol.init"):
+            return self._initialize(pde)
 
     def _step_function(self, pde):
         return self._step_fn
@@ -711,11 +725,8 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
     def E1(self):
         return self.iwp.projection_matrix(1)
 
-    def initialize(self, pde):
+    def _initialize(self, pde):
         n, d = self.num_derivatives + 1, pde.L.shape[0]
-        # PNMOL_INIT_PROFILE=1: synchronized seconds of each setup phase, in
-        # self.init_profile (the JAX package's phase names)
-        mark = profiling.PhaseTimer(os.environ.get("PNMOL_INIT_PROFILE") == "1")
         update_blocks = self._init_update_blocks(d, d)
         f = getattr(pde, "f", None)
         df = getattr(pde, "df", None)
@@ -726,48 +737,52 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
         diffuse_scale = self.diffuse_prior_scale
 
         # prior Gram, its Cholesky factor, and the closed-form y0 update
-        X = pde.mesh_spatial.points
-        gram = self.spatial_kernel(X, X.T)
-        chol_gram = torch.linalg.cholesky(gram)
-        u0, y0_blocks = structured_init_y0(gram, chol_gram, y0, diffuse_scale, nugget, n)
-        C00 = mark("prior_gram_cholesky_y0", y0_blocks[0])
+        with annotate("pnmol.init.prior_gram_cholesky_y0"):
+            X = pde.mesh_spatial.points
+            gram = self.spatial_kernel(X, X.T)
+            chol_gram = torch.linalg.cholesky(gram)
+            u0, y0_blocks = structured_init_y0(gram, chol_gram, y0, diffuse_scale, nugget, n)
+            C00 = y0_blocks[0]
 
         # PDE measurement on the derivative-{0,1} sub-state. After the y0
         # update the mean is zero except on derivative 0, so the residual is
         # closed form: z = [-L u0 - f(u0); B u0].
-        trans = iwp.IntegratedWienerTransition(
-            num_derivatives=self.num_derivatives,
-            wiener_process_dimension=d,
-            wp_diffusion_sqrtm=chol_gram,
-        )
-        A1d = trans.preconditioned_discretize_1d[0]
-        E_bc = torch.block_diag(pde.E_sqrtm, pde.R_sqrtm)
-        B1 = diffuse_scale * chol_gram  # derivative >= 1 prior factor block
-        L, B = pde.L, pde.B
-        if self.LINEAR:
-            G_lin, z_ode = L, -L @ u0
-        else:
-            G_lin = L if self.EK_ORDER == 0 else df(pde.t0, u0) + L
-            z_ode = -L @ u0 - f(pde.t0, u0)
-        z_pde = torch.cat((z_ode, B @ u0))
-        HCsub = torch.cat(
-            (
-                torch.cat((-G_lin @ C00, B1), dim=1),
-                torch.cat((B @ C00, u0.new_zeros((B.shape[0], d))), dim=1),
-            ),
-            dim=0,
-        )
-        E_bc_nugget = mark("measure_assembly", E_bc.clone())
-        E_bc_nugget.diagonal().add_(nugget)
-        m0, C0 = mark("init_update_qr", reduced_init_pde_update(
-            [C00] + [B1] * (n - 1), HCsub, E_bc_nugget, z_pde, u0, update_blocks
-        ))
+        with annotate("pnmol.init.measure_assembly"):
+            trans = iwp.IntegratedWienerTransition(
+                num_derivatives=self.num_derivatives,
+                wiener_process_dimension=d,
+                wp_diffusion_sqrtm=chol_gram,
+            )
+            A1d = trans.preconditioned_discretize_1d[0]
+            E_bc = torch.block_diag(pde.E_sqrtm, pde.R_sqrtm)
+            B1 = diffuse_scale * chol_gram  # derivative >= 1 prior factor block
+            L, B = pde.L, pde.B
+            if self.LINEAR:
+                G_lin, z_ode = L, -L @ u0
+            else:
+                G_lin = L if self.EK_ORDER == 0 else df(pde.t0, u0) + L
+                z_ode = -L @ u0 - f(pde.t0, u0)
+            z_pde = torch.cat((z_ode, B @ u0))
+            HCsub = torch.cat(
+                (
+                    torch.cat((-G_lin @ C00, B1), dim=1),
+                    torch.cat((B @ C00, u0.new_zeros((B.shape[0], d))), dim=1),
+                ),
+                dim=0,
+            )
+            E_bc_nugget = E_bc.clone()
+        with annotate("pnmol.init.init_update_qr"):
+            E_bc_nugget.diagonal().add_(nugget)
+            m0, C0 = reduced_init_pde_update(
+                [C00] + [B1] * (n - 1), HCsub, E_bc_nugget, z_pde, u0, update_blocks
+            )
         del gram, y0_blocks, C00, B1, HCsub, E_bc_nugget  # not held through a steady seed
-        C0 = self._initial_factor(C0, mark)
+        C0 = self._initial_factor(C0)
 
-        self._cache = mark("aux_Ql_Ebc", WhiteSolverCache(
-            A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
-        ))
+        with annotate("pnmol.init.aux_Ql_Ebc"):
+            self._cache = WhiteSolverCache(
+                A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
+            )
         opts = self._steady_options()
         if opts is None:
             self._step_fn = make_white_step_fn(
@@ -777,26 +792,27 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
                 meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
             )
         else:
-            # the doubling seed's posterior update runs the init update hook
-            seed_fn = functools.partial(
-                steady_state_sda_seed, num_derivatives=self.num_derivatives,
-                meascov_dt_scaled=self.meascov_dt_scaled, update_blocks=update_blocks,
-                **{k: opts[k] for k in ("bc_nugget",) if k in opts},
-            )
-            self.steady_cache = run_steady_convergence(
-                converge_white_steady_state, self._cache, C0, float(self.steprule.dt), opts,
-                1e-8 if m0.dtype == torch.float64 else 1e-5, seed_fn=seed_fn,
-                diagnostics=self.steady_diagnostics, num_derivatives=self.num_derivatives,
-                fused=self.fused, factorization=self.factorization,
-                propagate_band=self.propagate_band, meascov_dt_scaled=self.meascov_dt_scaled,
-            )
-            C0 = mark("steady_riccati", self.steady_cache).cov_inf
+            with annotate("pnmol.init.steady_riccati"):
+                # the doubling seed's posterior update runs the init update hook
+                seed_fn = functools.partial(
+                    steady_state_sda_seed, num_derivatives=self.num_derivatives,
+                    meascov_dt_scaled=self.meascov_dt_scaled, update_blocks=update_blocks,
+                    **{k: opts[k] for k in ("bc_nugget",) if k in opts},
+                )
+                self.steady_cache = run_steady_convergence(
+                    converge_white_steady_state, self._cache, C0, float(self.steprule.dt),
+                    opts, 1e-8 if m0.dtype == torch.float64 else 1e-5, seed_fn=seed_fn,
+                    diagnostics=self.steady_diagnostics, num_derivatives=self.num_derivatives,
+                    fused=self.fused, factorization=self.factorization,
+                    propagate_band=self.propagate_band,
+                    meascov_dt_scaled=self.meascov_dt_scaled,
+                )
+                C0 = self.steady_cache.cov_inf
             self._step_fn = make_steady_state_white_step(
                 cache=self._cache, steady=self.steady_cache,
                 num_derivatives=self.num_derivatives,
             )
         self.iwp = trans
-        self.init_profile = mark.profile
         return pdefilter.PDEFilterState(
             t=float(pde.t0),
             y=rv.MultivariateNormal(mean=iwp.flat_to_mean(m0, n), cov_sqrtm=C0),

@@ -1,7 +1,8 @@
 """Profiling, timing and work accounting.
 
 Counterpart of :mod:`pnmol_tpu.utils.profiling`: a ``torch.profiler`` trace
-(Chrome trace JSON, viewable in Perfetto) and ``record_function`` regions;
+(Chrome trace JSON, viewable in Perfetto) and the program's spans
+(:func:`annotate`, free while nothing records);
 timers that synchronize the device of the tensors they time; the analytic
 FLOP model of the white step per pipeline; and the step's roofline on one
 card, from the FP64 and HBM rates of
@@ -32,11 +33,20 @@ def trace(log_dir):
     prof.export_chrome_trace(str(log_dir / "trace.json"))
 
 
-@contextlib.contextmanager
+_profiler_enabled = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name):
-    """Named region in the profiler timeline."""
-    with torch.profiler.record_function(name):
-        yield
+    """The program's one span helper: ``with annotate("pnmol.step"):``.
+
+    While a profiler records, it returns ``record_function(name)``: a range
+    in the same trace as the device's activity, on the profiler's clock.
+    Otherwise it returns one shared null context and makes no call into the
+    profiler, so an untraced run pays one check a span."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _tensors(tree):
@@ -97,27 +107,6 @@ def force_complete(tree):
             flat = leaf.detach().reshape(-1)
             total += float(flat[::max(1, flat.numel() // 4096)].sum())
     return total
-
-
-class PhaseTimer:
-    """Wall-clock breakdown of a multi-phase setup path, on when ``enabled``.
-
-    Call ``timer(name, value)`` after each phase: when enabled it forces
-    completion of ``value`` and records the seconds since the previous mark
-    in ``timer.profile``; when disabled it returns ``value`` and adds no
-    synchronization (``timer.profile`` is None)."""
-
-    def __init__(self, enabled):
-        self.profile = {} if enabled else None
-        self._last = time.perf_counter() if enabled else None
-
-    def __call__(self, name, value):
-        if self.profile is not None:
-            force_complete(value)
-            now = time.perf_counter()
-            self.profile[name] = round(now - self._last, 3)
-            self._last = now
-        return value
 
 
 def qr_flops(rows, cols):
