@@ -45,9 +45,30 @@ def system_matrices_1d(num_derivatives: int, *, dtype, device):
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_constants(num_derivatives: int, dtype, device):
+    """The exponents ``nu + 1/2 - i`` and the factorials ``(nu - i)!`` of
+    :func:`nordsieck_scales_1d`, made on ``device`` once."""
+    powers = torch.arange(num_derivatives, -1, -1, dtype=dtype, device=device)
+    scales = torch.tensor(
+        [math.factorial(k) for k in range(num_derivatives, -1, -1)],
+        dtype=dtype, device=device,
+    )
+    return powers + 0.5, scales
+
+
 def nordsieck_scales_1d(num_derivatives: int, dt, *, dtype, device):
     """Nordsieck preconditioner scales and inverse scales, shape (n,):
-    ``p[i] = |dt|^(nu + 1/2 - i) / (nu - i)!``."""
+    ``p[i] = |dt|^(nu + 1/2 - i) / (nu - i)!``.
+
+    A float ``dt`` copies the factorials and ``dt`` to ``device`` on every
+    call. A 0-dim tensor ``dt`` on ``device`` copies nothing: the exponents
+    and factorials are made there once, and the same operations give the
+    same scales, bit for bit."""
+    if torch.is_tensor(dt):
+        powers, scales = _scale_constants(num_derivatives, dtype, torch.device(device))
+        abs_dt = torch.abs(dt.to(dtype=dtype))
+        return abs_dt**powers / scales, abs_dt ** (-powers) * scales
     powers = torch.arange(num_derivatives, -1, -1, dtype=dtype, device=device)
     scales = torch.tensor(
         [math.factorial(k) for k in range(num_derivatives, -1, -1)],
@@ -67,12 +88,17 @@ def apply_stack_matrix(A_1d, X):
     return torch.einsum("ab,dbk->dak", A_1d, X.reshape(-1, n, K)).reshape(-1, K)
 
 
-def scale_stack(p, X):
-    """``kron(I_d, diag(p)) @ X`` (p has shape (n,))."""
+def scale_stack(p, X, out=None):
+    """``kron(I_d, diag(p)) @ X`` (p has shape (n,)); for a matrix ``X``,
+    written into ``out`` (contiguous, ``X``'s shape; ``X`` itself too) where
+    given."""
     n = p.shape[0]
     if X.ndim == 1:
         return (X.reshape(-1, n) * p[None, :]).reshape(-1)
     K = X.shape[1]
+    if out is not None:
+        torch.mul(X.reshape(-1, n, K), p[None, :, None], out=out.view(-1, n, K))
+        return out
     return (X.reshape(-1, n, K) * p[None, :, None]).reshape(-1, K)
 
 

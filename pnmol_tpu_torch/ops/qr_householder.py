@@ -533,10 +533,15 @@ def make_householder_lq_factorization(*, leaf: int = 32, block: int = 128,
     sweep = dict(leaf=leaf, block=block, precision=precision)
 
     def _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, band):
+        # the pre-array written into one buffer, without concatenated halves
+        # beside it at the step's high-water mark
         m, D = HACl.shape
-        top = torch.cat((HACl, HQl, meascov_sqrtm), dim=1)
-        bottom = torch.cat((ACl, Ql, ACl.new_zeros((D, m))), dim=1)
-        return _lq_blocks(top, bottom, m, band, sweep)
+        work = HACl.new_empty((m + D, 2 * D + m))
+        top, bottom = work[:m], work[m:]
+        top[:, :D], top[:, D:2 * D], top[:, 2 * D:] = HACl, HQl, meascov_sqrtm
+        bottom[:, :D], bottom[:, D:2 * D], bottom[:, 2 * D:] = ACl, Ql, 0.0
+        L = _lq_in_place(work, band=band, **sweep)
+        return L[m:, m:], L[m:, :m], L[:m, :m]
 
     def blocks(HACl, ACl, HQl, Ql, meascov_sqrtm):
         return _blocks(HACl, ACl, HQl, Ql, meascov_sqrtm, None)

@@ -73,6 +73,27 @@ def constant_step_schedule(t0, tmax, dt):
     return ts, dts
 
 
+def _read_accepted(step_fn, accepted):
+    """The controller's ``accepted`` on the host. Where ``step_fn`` defers
+    its failures (a device code ``failed`` and ``raise_failure``, as
+    :class:`pnmol_tpu_torch.solvers.white.GraphedWhiteAttempt`), the code
+    comes to the host in the same copy, and a failure raises."""
+    failed = getattr(step_fn, "failed", None)
+    if failed is None or not torch.is_tensor(accepted):
+        return bool(accepted)
+    accepted, code = torch.stack((accepted.to(failed.dtype), failed)).tolist()
+    step_fn.raise_failure(code)
+    return bool(accepted)
+
+
+def raise_deferred_failure(step_fn):
+    """Read, and raise, a failure that ``step_fn`` deferred where no read has
+    come since its last attempt (:func:`_read_accepted`); nothing for a step
+    function that defers none."""
+    if getattr(step_fn, "unread", False):
+        step_fn.raise_failure(int(step_fn.failed))
+
+
 def adaptive_attempt(step_fn, steprule, rate, t, mean, cov, dt, tmax):
     """One attempt and its step-control decision: the one controller of
     every non-scheduled step (adaptive rules, and constant rules with time
@@ -84,13 +105,14 @@ def adaptive_attempt(step_fn, steprule, rate, t, mean, cov, dt, tmax):
     those of the attempt if it is accepted and the inputs otherwise,
     ``error``/``ref``/``diff_sq`` are the attempt's own. The attempt is one
     ``pnmol.step`` span, the decision and its host reads a
-    ``pnmol.step.control`` span inside it.
+    ``pnmol.step.control`` span inside it; a failure that the step deferred
+    is read with ``accepted``.
     """
     with annotate("pnmol.step"):
         new_mean, new_cov, error, ref, diff_sq = step_fn(mean, cov, t + dt, dt)
         with annotate("pnmol.step.control"):
             scaled = steprule.scale_error_estimate(dt * error, ref)
-            accepted = bool(steprule.is_accepted(scaled))
+            accepted = _read_accepted(step_fn, steprule.is_accepted(scaled))
             suggested = float(steprule.suggest(dt, scaled, local_convergence_rate=rate))
             if accepted:
                 t, mean, cov = t + dt, new_mean, new_cov
@@ -194,7 +216,10 @@ class PDEFilter(ABC):
 
     def solution_generator(self, pde, /, *, stop_at=None, progressbar=False):
         """Yield ``(state, info)``: the initial state, then one per accepted
-        step. The one loop behind ``solve`` and ``simulate_final_state``."""
+        step. The one loop behind ``solve`` and ``simulate_final_state``. A
+        failure that the step deferred and no read has raised yet raises
+        where the generator ends: at its last step, or where the caller
+        closes it early (:func:`raise_deferred_failure`)."""
         time_stopper = _TimeStopper(stop_at) if stop_at is not None else None
         state = self.initialize(pde)
         info = _empty_info()
@@ -210,22 +235,27 @@ class PDEFilter(ABC):
         # epsilon guard: a residual step of ~1e-16 would blow up the
         # dt^-(nu+1/2) preconditioner (see constant_step_schedule)
         t_eps = 1e-12 * max(1.0, abs(tmax))
-        while tmax - state.t > t_eps:
-            if pbar is not None:
-                pbar.advance_to(state.t, dt=dt)
-            if schedule is not None:
-                t_next, dt = next(schedule)
-                state, step_info = self.attempt_step(state, dt, pde, t_next)
-                step_info["num_attempted_steps"] = 1
-            else:
-                if time_stopper is not None:
-                    dt = time_stopper.adjust_dt_to_time_stops(state.t, dt)
-                state, dt, step_info = self.perform_full_step(state, dt, pde)
-            info["num_steps"] += 1
-            for key, value in step_info.items():
-                info[key] += value
-            yield state, info
-
+        # locals: a generator collected at the interpreter's exit runs its
+        # ``finally`` after the module's globals are gone
+        step_fn, read_failure = self._step_function(pde), raise_deferred_failure
+        try:
+            while tmax - state.t > t_eps:
+                if pbar is not None:
+                    pbar.advance_to(state.t, dt=dt)
+                if schedule is not None:
+                    t_next, dt = next(schedule)
+                    state, step_info = self.attempt_step(state, dt, pde, t_next)
+                    step_info["num_attempted_steps"] = 1
+                else:
+                    if time_stopper is not None:
+                        dt = time_stopper.adjust_dt_to_time_stops(state.t, dt)
+                    state, dt, step_info = self.perform_full_step(state, dt, pde)
+                info["num_steps"] += 1
+                for key, value in step_info.items():
+                    info[key] += value
+                yield state, info
+        finally:
+            read_failure(step_fn)
         if pbar is not None:
             pbar.close(state.t, dt=dt)
 

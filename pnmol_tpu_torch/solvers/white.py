@@ -118,17 +118,18 @@ def _predict_update(factorization, fused, propagate_band, apply_H, ACl, HQl, Ql,
     return C, L21, None, Sl
 
 
-def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim):
+def _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n, m_dim, out=None):
     """Whitened residual via the LOWER solve ``Sl w = z`` (``z^T S^{-1} z``
     with ``S = Sl Sl^T``, invariant to row signs), the local diffusion, the
     mean update ``K z = L21 w`` and the un-preconditioning. Returns
-    ``(mean (n, d'), cov factor, diffusion_sq)``."""
+    ``(mean (n, d'), cov factor, diffusion_sq)``, the factor written into
+    ``out`` where given."""
     residual_white = torch.linalg.solve_triangular(Sl, z[:, None], upper=False)[:, 0]
     diffusion_sq = residual_white @ residual_white / m_dim
     correction = L21 @ residual_white if K is None else K @ z
     m_new_flat = iwp.mean_to_flat(Mp) - correction
     M_new = iwp.flat_to_mean(m_new_flat, n) * p[:, None]
-    return M_new, iwp.scale_stack(p, Cl_new), diffusion_sq
+    return M_new, iwp.scale_stack(p, Cl_new, out=out), diffusion_sq
 
 
 def _meascov_factor(cache, dt, meascov_dt_scaled):
@@ -138,7 +139,8 @@ def _meascov_factor(cache, dt, meascov_dt_scaled):
 
 def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
                        f=None, df=None, linear=True, factorization=None, fused=True,
-                       propagate_band=None, meascov_dt_scaled=False, ek_order=1):
+                       propagate_band=None, meascov_dt_scaled=False, ek_order=1, failed=None,
+                       in_place=False):
     """One white-noise EK{0,1} step.
 
     Returns ``(mean (n, d), cov_sqrtm (D, D), error_estimate (d,),
@@ -153,6 +155,20 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     white noise in time). Its four phases are spans inside the attempt's
     ``pnmol.step``: ``pnmol.step.predict``, ``.error``, ``.factorize`` and
     ``.update``.
+
+    The host reads the device three times: the scales' two copies and the
+    Cholesky factor's check. With ``dt`` a 0-dim tensor on the state's device
+    and ``failed`` a 0-dim int32 tensor there, it reads nothing, so that the
+    step can be captured as a CUDA graph: the scales come from ``dt`` alone
+    (:func:`pnmol_tpu_torch.ops.iwp.nordsieck_scales_1d`), and a Cholesky
+    factor that fails writes the order of its first non-positive minor into
+    ``failed`` where that is still 0, for the solve loop to raise at a read
+    it makes anyway (:meth:`GraphedWhiteAttempt.raise_failure`). Until then
+    every attempt's mean comes out NaN, where the eager step would have
+    raised: no state after a failure passes for a solution. ``in_place``
+    preconditions ``cov_sqrtm`` in place and writes the posterior factor over
+    it (the graphed attempt's own buffer): the step then holds no factor
+    beside the op-by-op step's.
     """
     n = num_derivatives + 1
     d = mean.shape[1]
@@ -165,7 +181,7 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
         # [Precondition] and [Predict mean]
         M = mean * p_inv[:, None]
-        Cl = iwp.scale_stack(p_inv, cov_sqrtm)
+        Cl = iwp.scale_stack(p_inv, cov_sqrtm, out=cov_sqrtm if in_place else None)
         Mp = cache.A1d @ M
 
         # [Linearize] at the predicted point; [Residual] z = H mp + [shift; 0]
@@ -178,7 +194,13 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
     with annotate("pnmol.step.error"):
         HQl = apply_H(cache.Ql)
         S = HQl @ HQl.T + E_bc @ E_bc.T
-        whitened = torch.cholesky_solve(z[:, None], torch.linalg.cholesky(S))[:, 0]
+        if failed is None:
+            whitened = torch.cholesky_solve(z[:, None], torch.linalg.cholesky(S))[:, 0]
+        else:
+            chol, info = torch.linalg.cholesky_ex(S)
+            failed.copy_(torch.where(failed == 0, info, failed))
+            whitened = torch.cholesky_solve(z[:, None], chol)[:, 0]
+            del chol
         sigma_squared = z @ whitened / m_dim
         error = dt * (torch.sqrt(torch.diagonal(S)) * torch.sqrt(sigma_squared))[:d]
 
@@ -190,9 +212,15 @@ def white_attempt_step(cache, mean, cov_sqrtm, t_next, dt, *, num_derivatives,
 
     # [Calibrate + mean update] and [Un-precondition]
     with annotate("pnmol.step.update"):
-        M_new, C_new, diffusion_sq = _calibrate_and_update(Mp, Cl_new, L21, K, Sl, z, p, n,
-                                                           m_dim)
+        M_new, C_new, diffusion_sq = _calibrate_and_update(
+            Mp, Cl_new, L21, K, Sl, z, p, n, m_dim, out=cov_sqrtm if in_place else None)
+        if failed is not None:
+            M_new.masked_fill_(failed != 0, float("nan"))
     return M_new, C_new, error, torch.abs(M_new[0]), diffusion_sq
+
+
+white_attempt_step.graph_captures = 0
+white_attempt_step.graph_replays = 0
 
 
 def make_white_step_fn(*, cache, num_derivatives, f=None, df=None, linear=True, fused=True,
@@ -207,6 +235,146 @@ def make_white_step_fn(*, cache, num_derivatives, f=None, df=None, linear=True, 
         fused=fused, factorization=factorization, meascov_dt_scaled=meascov_dt_scaled,
         propagate_band=propagate_band, ek_order=ek_order,
     )
+
+
+# the kernel routes whose launch counters a captured attempt may add to
+_COUNTED_ROUTES = ("panel_lq", "leaf_lq", "leaf_qr")
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device):
+    """The one side stream of ``device`` on which every attempt is captured:
+    a capture needs a stream other than the default one."""
+    return torch.cuda.Stream(device)
+
+
+def graph_engages(solver, d, dtype, device):
+    """Whether the white-noise attempt of ``solver`` on ``d`` points in
+    ``dtype`` runs as one CUDA graph (:class:`GraphedWhiteAttempt`): where
+    the attempt is many small launches that the host would issue one by
+    one. That is on a CUDA ``device``, for a LINEAR solver (no ``f``/``df``
+    to evaluate) with the fused pre-array on the ``"householder"`` hook
+    whose sweep takes the block route (one panel launch a block: the 128-row
+    blocks below 4096 points), steady state off. Every other attempt runs op
+    by op, as before."""
+    steady = solver.steady_state or isinstance(solver.steady_state, dict)
+    if torch.device(device).type != "cuda" or steady or not (solver.LINEAR and solver.fused):
+        return False
+    _, block = householder_sizes(d)
+    return (solver._factorization_spec == "householder"
+            and qr_householder.panel_takes_rows(block, torch.finfo(dtype).bits // 8))
+
+
+class GraphedWhiteAttempt:
+    """The white-noise attempt captured once as one CUDA graph, and replayed:
+    the step function ``(mean, cov, t_next, dt) -> (mean, cov, error,
+    reference, diffusion_sq)`` of the solvers where :func:`graph_engages`.
+
+    The first call captures ``attempt`` (:func:`white_attempt_step`, as the
+    module held it at ``initialize``) on buffers of its own: the cache's,
+    the input state's, the device scalar ``dt`` and the failure code
+    ``failed`` (see :func:`white_attempt_step`); the input factor's buffer
+    is the output factor's too (``in_place``), so that the graph keeps no
+    factor beside the op-by-op step's. Every call, the first included,
+    copies ``mean`` and ``cov`` into the input buffers, writes ``dt``,
+    replays the graph in a ``pnmol.step.replay`` span and returns fresh
+    copies of its outputs, so that a later replay writes over no state that
+    a caller holds. The host reads nothing. The capture adds
+    nothing to the kernels' launch counters; each replay adds the launches it
+    captured (17 ``panel_lq`` at 512 points), and one to
+    ``white_attempt_step.graph_replays`` (``.graph_captures`` counts the
+    captures).
+
+    A later ``initialize`` on the same problem copies its cache into the
+    buffers the graph reads (:meth:`load`, where :meth:`fits`); the problem's
+    own ``L`` and ``B`` are read in place, so another problem takes another
+    capture.
+    """
+
+    # the eager attempt's error; attributes of the class, so that a generator
+    # collected at the interpreter's exit still raises it
+    error = torch.linalg.LinAlgError
+    message = ("linalg.cholesky: The factorization could not be completed because the input is "
+               "not positive-definite (the leading minor of order {} is not positive-definite).")
+
+    def __init__(self, cache, attempt, options):
+        self.cache, self.attempt, self.options = cache, attempt, options
+        self.dt = cache.Ql.new_zeros(())
+        self.failed = torch.zeros((), dtype=torch.int32, device=cache.Ql.device)
+        self.unread = False  # whether an attempt ran since the loop last read ``failed``
+        self.graph = self.mean = self.cov = self.outputs = None
+        self.launches = ()
+
+    def fits(self, cache, attempt, options):
+        """Whether :meth:`load` can take ``cache``: the same step, options and
+        problem operators, and buffers of the same shapes."""
+        same = all(mine.shape == new.shape and mine.dtype == new.dtype
+                   and mine.device == new.device for mine, new in zip(self.cache, cache))
+        return (same and attempt is self.attempt and options == self.options
+                and cache.L is self.cache.L and cache.B is self.cache.B)
+
+    def load(self, cache):
+        """Copy ``cache`` into the buffers the graph reads, clear the failure
+        code, and return the cache of those buffers."""
+        for mine, new in zip(self.cache, cache):
+            if mine is not new:
+                mine.copy_(new)
+        self.failed.zero_()
+        self.unread = False
+        return self.cache
+
+    def raise_failure(self, code):
+        """Raise the error of the eager attempt's Cholesky factor where
+        ``code``, a read of :attr:`failed`, is not 0."""
+        self.unread = False
+        if code:
+            raise self.error(self.message.format(code))
+
+    def _capture(self, mean, cov, t_next):
+        self.mean, self.cov = torch.empty_like(mean), torch.empty_like(cov)
+        # the scales' constants are made on the device before the capture
+        iwp.nordsieck_scales_1d(self.options["num_derivatives"], self.dt, dtype=self.dt.dtype,
+                                device=self.dt.device)
+        counters = [getattr(qr_householder, route) for route in _COUNTED_ROUTES]
+        before = [counter.launches for counter in counters]
+        graph = torch.cuda.CUDAGraph()
+        # cuBLAS keeps a workspace for each stream it runs on. Dropped before
+        # the capture and after it, the capture stream's comes from the graph's
+        # own pool and stays there, and the card holds one workspace, not two
+        torch._C._cuda_clearCublasWorkspaces()
+        try:
+            # not torch.cuda.graph, which empties the allocator's cache: the
+            # blocks of the next initialize would come from cudaMalloc again
+            with torch.cuda.stream(_capture_stream(self.dt.device)):
+                graph.capture_begin()
+                try:
+                    self.outputs = self.attempt(self.cache, self.mean, self.cov, t_next, self.dt,
+                                                failed=self.failed, in_place=True,
+                                                **self.options)
+                finally:
+                    graph.capture_end()
+        finally:
+            torch._C._cuda_clearCublasWorkspaces()
+            self.launches = [(counter, counter.launches - n)
+                             for counter, n in zip(counters, before)]
+            for counter, n in zip(counters, before):
+                counter.launches = n
+        self.graph = graph
+        white_attempt_step.graph_captures += 1
+
+    def __call__(self, mean, cov, t_next, dt):
+        self.dt.fill_(dt)
+        self.unread = True
+        if self.graph is None:
+            self._capture(mean, cov, t_next)
+        self.mean.copy_(mean)
+        self.cov.copy_(cov)
+        with annotate("pnmol.step.replay"):
+            self.graph.replay()
+        for counter, launches in self.launches:
+            counter.launches += launches
+        white_attempt_step.graph_replays += 1
+        return tuple(x.clone() for x in self.outputs)
 
 
 def structured_init_y0(gram, chol_gram, y0, diffuse_scale, nugget, n):
@@ -258,17 +426,22 @@ def point_major_blockdiag(blocks):
     return bd[perm][:, perm]
 
 
+def householder_sizes(d: int):
+    """``(leaf, block)`` of the Householder hooks for ``d`` state points:
+    blocks of 256 rows from 4096 points on (else 128), leaves of 64 rows from
+    8192 on (else 32), as the JAX package sizes them."""
+    return (64 if d >= 8192 else 32), (256 if d >= 4096 else 128)
+
+
 def resolve_householder_hooks(d: int, *, pair_columns: bool = False):
     """(step factorization, init update) Householder-LQ hooks sized for a
-    problem with ``d`` state points (the latent solvers pass 2d), as the JAX
-    package sizes them: blocks of 256 rows from 4096 points on (else 128),
-    leaves of 64 rows from 8192 on (else 32). The panel kernel takes 128-row
+    problem with ``d`` state points (the latent solvers pass 2d) by
+    :func:`householder_sizes`. The panel kernel takes 128-row
     blocks in one launch; 256-row blocks take the leaf route, one launch per
     leaf (:func:`pnmol_tpu_torch.ops.qr_householder.blocked_lq_l`). The
     sizing is the same in f32, where one launch could take up to 240 rows
     (:func:`pnmol_tpu_torch.ops.qr_householder.panel_takes_rows`)."""
-    leaf = 64 if d >= 8192 else 32
-    block = 256 if d >= 4096 else 128
+    leaf, block = householder_sizes(d)
     factorization = qr_householder.make_householder_lq_factorization(
         leaf=leaf, block=block, pair_columns=pair_columns
     )
@@ -715,6 +888,20 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
     def __init__(self, *args, meascov_dt_scaled=False, **kwargs):
         super().__init__(*args, **kwargs)
         self.meascov_dt_scaled = meascov_dt_scaled
+        self._graphed = None
+
+    def _graphed_attempt(self, options):
+        """The graphed attempt on this ``initialize``'s cache: an earlier
+        ``initialize``'s where it :meth:`~GraphedWhiteAttempt.fits`, the cache
+        copied into its buffers, else a new one. :attr:`_cache` becomes the
+        cache of its buffers."""
+        graphed = self._graphed
+        if graphed is not None and graphed.fits(self._cache, white_attempt_step, options):
+            self._cache = graphed.load(self._cache)
+            return graphed
+        self._graphed = None  # the old graph's memory goes first
+        self._graphed = GraphedWhiteAttempt(self._cache, white_attempt_step, options)
+        return self._graphed
 
     @property
     def E0(self):
@@ -784,13 +971,17 @@ class _WhiteNoiseEK1Base(FusedFactorizationFilter):
                 A1d=A1d, Ql=trans.process_noise_factor, L=L, B=B, E_bc_sqrtm=E_bc
             )
         opts = self._steady_options()
-        if opts is None:
-            self._step_fn = make_white_step_fn(
-                cache=self._cache, num_derivatives=self.num_derivatives, f=f, df=df,
-                linear=self.LINEAR, factorization=self.factorization, fused=self.fused,
-                propagate_band=self.propagate_band,
-                meascov_dt_scaled=self.meascov_dt_scaled, ek_order=self.EK_ORDER,
-            )
+        step_options = dict(
+            num_derivatives=self.num_derivatives, f=f, df=df, linear=self.LINEAR,
+            factorization=self.factorization, fused=self.fused,
+            propagate_band=self.propagate_band, meascov_dt_scaled=self.meascov_dt_scaled,
+            ek_order=self.EK_ORDER,
+        )
+        if opts is None and graph_engages(self, d, m0.dtype, m0.device):
+            self._step_fn = self._graphed_attempt(step_options)
+            trans.process_noise_factor = self._cache.Ql  # one noise factor alive
+        elif opts is None:
+            self._step_fn = make_white_step_fn(cache=self._cache, **step_options)
         else:
             with annotate("pnmol.init.steady_riccati"):
                 # the doubling seed's posterior update runs the init update hook

@@ -46,7 +46,9 @@ def solve_resilient(solver, pde, *, checkpoint_dir, checkpoint_every=50, max_res
     adaptive_attempt`, the controller of every driver. Returns
     ``(final_state, ResilienceReport)``, the factor scaled by the mean of
     the accepted steps' local diffusions. Rules other than ``Constant`` and
-    ``Adaptive`` raise ``NotImplementedError``.
+    ``Adaptive`` raise ``NotImplementedError``. A failure that the step
+    deferred (:func:`pnmol_tpu_torch.solvers.pdefilter.raise_deferred_failure`)
+    raises at the attempt's own check, before a checkpoint can hold its state.
     """
     adaptive = isinstance(solver.steprule, step_module.Adaptive)
     if not adaptive and not isinstance(solver.steprule, step_module.Constant):
@@ -61,9 +63,9 @@ def solve_resilient(solver, pde, *, checkpoint_dir, checkpoint_every=50, max_res
 
     state = solver.initialize(pde)
     device = state.y.mean.device
+    step_fn = solver._step_function(pde)
     if adaptive:
         dt = float(solver.steprule.first_dt(pde))
-        step_fn = solver._step_function(pde)
         rate = solver.num_derivatives + 1
     else:
         dt = float(solver.steprule.dt)
@@ -102,6 +104,7 @@ def solve_resilient(solver, pde, *, checkpoint_dir, checkpoint_every=50, max_res
         else:
             proposed, _ = solver.attempt_step(state, this_dt, pde)
             next_dt = dt
+            pdefilter.raise_deferred_failure(step_fn)  # the adaptive loop reads it per attempt
             failed = not _finite(proposed.y.mean, proposed.y.cov_sqrtm)
 
         if failed:
