@@ -65,7 +65,8 @@ def check(cell, program, seed, device, nums):
     prob = rf.Problem(L, E, B, R, gram, nu=nu, diffuse_scale=options["diffuse_prior_scale"],
                       nugget=solver["init_nugget"])
     scale = scaling(nu, settings["probe_dt"], d, device)
-    probe = scale[:, None] * program["probe"].to(device)
+    # no probe where the program stopped before its first state
+    probe = scale[:, None] * program["probe"].to(device) if "probe" in program else None
 
     def compare(prefix, got, mean, factor):
         u, worst = mean_gaps(got["mean"], mean.cpu())

@@ -15,7 +15,6 @@ at its end in the ``solves`` mode, whose program synchronizes every attempt.
 import contextlib
 import gc
 import importlib
-import sys
 import time
 import types
 
@@ -79,11 +78,8 @@ class _Run:
         d = self.pde.L.shape[0]
         self.dims = dict(d=d, m=d + self.pde.B.shape[0], n=nu + 1,
                          itemsize=self.pde.L.element_size())
-        self.layout = system.Layout(nu + 1, d, self.dev)
-        probe = inputs.probe((nu + 1) * d, cell.settings["probe_columns"], seed, self.dev)
-        self.scale = compare.scaling(nu, cell.settings["probe_dt"], d, self.dev)
-        self.prepared = self.layout.prepare(probe, self.scale)
-        self.program = {"probe": probe.cpu(), "y0": y0, "layout_inv": self.layout.inv.cpu()}
+        self.layout = self.prepared = self.scale = None  # from the first state
+        self.program = {"y0": y0}
         self.marks = Marks(self.cuda)
         self.holder = types.SimpleNamespace(trace=None)
         self.init_s = self.setup_s = self.window_s = None
@@ -96,6 +92,17 @@ class _Run:
     def sync(self):
         if self.cuda:
             torch.cuda.synchronize()
+
+    def _read_layout(self, mean):
+        """The layout, the check's probe and scaling, from a state's mean
+        ``(n, d')``: the rows of the state, whatever the solver stacks in it."""
+        n, d = mean.shape
+        settings = self.cell.settings
+        self.layout = system.Layout(n, d, self.dev)
+        probe = inputs.probe(n * d, settings["probe_columns"], self.seed, self.dev)
+        self.scale = compare.scaling(n - 1, settings["probe_dt"], d, self.dev)
+        self.prepared = self.layout.prepare(probe, self.scale)
+        self.program.update(probe=probe.cpu(), layout_inv=self.layout.inv.cpu())
 
     def summary(self, state, diffusion=None):
         """What the check compares of a state; its tensors stay on the device."""
@@ -111,9 +118,8 @@ class _Run:
         state, _ = next(gen)
         self.sync()
         self.init_s = time.perf_counter() - t0
-        if self.trace:  # the solver's phase timer runs in traced runs (PNMOL_INIT_PROFILE)
-            print(f"init phases (s): {getattr(self.solver, 'init_profile', None)}",
-                  file=sys.stderr, flush=True)
+        if self.layout is None:
+            self._read_layout(state.y.mean)
         return gen, state
 
     def to_host(self, summary):

@@ -22,7 +22,6 @@ import bisect
 
 PREFIX = "pnmol."
 STEP = PREFIX + "step"
-SWEEP = PREFIX + "lq.sweep"
 SYNC_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaEventSynchronize", "cudaMemcpy"})
 

@@ -61,8 +61,6 @@ def main(argv=None):
         print(f"run.py: needs {chips} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    if args.trace:
-        os.environ["PNMOL_INIT_PROFILE"] = "1"
     result, checks = runner.run(cell, args.seed, args.seconds, trace=bool(args.trace),
                                 dtype=args.dtype, t_start=T_START)
     found = forbidden_modules()

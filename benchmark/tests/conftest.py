@@ -16,27 +16,22 @@ if str(ROOT) not in sys.path:
 
 from harness import manifest  # noqa: E402
 
-# a sound float64 run on the CPU at these sizes reads each number at least
-# ten times below these limits (the readings are in the module docstrings of
-# the tests that use them); float32 and the planted faults read far above
-SMALL_LIMITS = {"mesh": 0.0, "stencils": 0.0, "boundary": 0.0, "L": 1e-9, "E_sqrtm": 1e-8,
-                "init_u": 1e-11, "init_mean": 1e-9, "init_gram": 1e-6, "u": 1e-10,
-                "mean": 1e-7, "gram": 1e-5, "diffusion": 1e-6, "calibrated": 1e-7,
-                "times": 1e-7, "attempts": 0.0}
-SMALL_POINTS = {"heat1d-n512.const": [32], "heat1d-n512.adaptive": [32],
-                "heat2d-n1e4.const": [8, 8]}
-
 
 def small_cell(name):
-    """The cell ``name`` at a CPU test's size: its grid cut to
-    ``SMALL_POINTS``, two window steps at most before the checked one, and
-    ``SMALL_LIMITS`` for the numbers the cell has limits for."""
+    """The cell ``name`` at a CPU test's size, from its settings' ``small``
+    block: the grid ``num_points`` in the configuration, every other key of
+    the block (the ``limits`` at that size among them) in the settings."""
     cell = manifest.Cell.load(name)
+    small = dict(cell.settings["small"])
     cell.config = copy.deepcopy(cell.config)
-    cell.config["problem"]["num_points"] = SMALL_POINTS[name]
-    limits = {name: SMALL_LIMITS[name] for name in cell.settings["limits"]}
-    cell.settings = dict(cell.settings, window_check_max=2, limits=limits)
+    cell.config["problem"]["num_points"] = small.pop("num_points")
+    cell.settings = dict(cell.settings, **small)
     return cell
+
+
+def cells():
+    """The names of the cells in ``BENCHMARK.json``."""
+    return [c["name"] for c in manifest.manifest()["workloads"]]
 
 
 @pytest.fixture

@@ -7,10 +7,11 @@ import sys
 
 import pytest
 
-from conftest import BENCH, ROOT
+from conftest import BENCH, ROOT, cells
+from harness import faults
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [c["name"] for c in MANIFEST["workloads"]]
+CELLS = cells()
 
 
 @pytest.mark.cuda
@@ -43,18 +44,9 @@ def test_control_in_float32_is_not_correct_on_the_card(cell, cuda_device):
     assert not json.loads(proc.stdout.strip().splitlines()[-1])["correct"]
 
 
-def _fault_cases():
-    cases = []
-    for cell in MANIFEST["workloads"]:
-        traffic = json.loads((BENCH / "traffic" / f"{cell['traffic']}.json").read_text())
-        cases.append((cell["name"], "answer_altered"))
-        if traffic["mode"] == "trajectory":  # an adaptive solve never ends on it
-            cases.append((cell["name"], "state_unchanged"))
-    return cases
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell, fault", _fault_cases())
+@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_planted_fault_is_not_correct_on_the_card(cell, fault, cuda_device):
     """Each fault at the cell's own size and limits (readings printed)."""
     from harness import manifest, runner

@@ -1,6 +1,7 @@
 """The harness's whole run on the CPU at small sizes, the card's look left
-out: a sound float64 run is correct; the control (the program in float32)
-and each fault planted in the timed path are not.
+out, for each cell of ``BENCHMARK.json`` at the size its settings' ``small``
+block gives: a sound float64 run is correct; the control (the program in
+float32) and each fault planted in the timed path are not.
 
 Readings of sound runs here (seed 123456789012): heat 1-D on 32 points, L
 1.1e-12, E_sqrtm 4.0e-11, init_gram 2.5e-9, mean 2.4e-9, gram 1.9e-7,
@@ -12,11 +13,11 @@ control reads L 7.4e-4, E_sqrtm 2.5e-2, u 1.9e-5 and the gram above 10.
 import pytest
 import torch
 
-from conftest import small_cell
+from conftest import cells, small_cell
 from harness import faults, runner
 
 SEED = 123456789012
-CELLS = ("heat1d-n512.const", "heat1d-n512.adaptive", "heat2d-n1e4.const")
+CELLS = cells()
 
 
 def run(name, **kwargs):
@@ -37,7 +38,7 @@ def test_sound_run_is_correct(name):
 def test_control_in_float32_is_not_correct(name):
     result, table = run(name, dtype="float32")
     assert not result["correct"]
-    assert table["L"]["value"] > 1e3 * table["L"]["limit"]
+    assert any(v["limit"] and v["value"] >= 1e3 * v["limit"] for v in table.values()), table
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))

@@ -9,7 +9,7 @@ import types
 
 import pytest
 
-from conftest import small_cell
+from conftest import cells, small_cell
 from harness import manifest, runner
 
 HOST = [
@@ -50,8 +50,8 @@ def test_reader_gives_nothing_without_the_spans_the_attempts_or_the_counter(monk
     assert _read(_ctx()) is None
 
 
-@pytest.mark.parametrize("cell", ["heat1d-n512.const", "heat1d-n512.adaptive",
-                                  "heat2d-n1e4.const"])
+@pytest.mark.parametrize("cell", [c for c in cells() if any(
+    m["name"] == "replays_per_attempt" for m in manifest.Cell.load(c).per_layer)])
 def test_traced_run_on_the_cpu_reads_no_replay(cell):
     result, _ = runner.run(small_cell(cell), 123456789013, 0.05, device="cpu", trace=True)
     assert result["correct"]
